@@ -1,0 +1,63 @@
+"""DDPM scheduler with diffusers==0.21.0 step semantics
+(`bdm_tpu/diffusion/ddpm.py`); the noise of each step is passed in.
+
+    x0_hat = (x_t - sqrt(1-acp_t) * eps) / sqrt(acp_t)
+    mean   = sqrt(acp_prev)*beta_t/(1-acp_t) * x0_hat
+             + sqrt(alpha_t)*(1-acp_prev)/(1-acp_t) * x_t
+    var    = max((1-acp_prev)/(1-acp_t) * beta_t, 1e-20)
+    x_prev = mean + [t > 0] * sqrt(var) * z
+
+The per-step coefficients are float32 scalars computed on the host in the
+reference's order, so a step is a handful of elementwise ops on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+f32 = np.float32
+
+
+class DDPMScheduler:
+    def __init__(self, betas: np.ndarray):
+        betas = np.asarray(betas, dtype=np.float64)
+        self.num_train_timesteps = len(betas)
+        self.alphas_cumprod = np.cumprod(1.0 - betas).astype(np.float32)
+        self._num_inference_steps = self.num_train_timesteps
+
+    def set_timesteps(self, num_inference_steps: int) -> np.ndarray:
+        """Descending timesteps: round(arange(S) * (T // S)) reversed."""
+        self._num_inference_steps = int(num_inference_steps)
+        s = self._num_inference_steps
+        return (np.arange(0, s) * self.step_ratio).round()[::-1].astype(
+            np.int32)
+
+    @property
+    def step_ratio(self) -> int:
+        return self.num_train_timesteps // self._num_inference_steps
+
+    def coefficients(self, t: int):
+        """(sqrt(1-acp_t), sqrt(acp_t), coef_x0, coef_xt, noise scale)."""
+        t = int(t)
+        prev_t = t - self.step_ratio
+        acp_t = self.alphas_cumprod[t]
+        acp_prev = self.alphas_cumprod[prev_t] if prev_t >= 0 else f32(1.0)
+        beta_prod_t = f32(1.0) - acp_t
+        beta_prod_prev = f32(1.0) - acp_prev
+        current_alpha = acp_t / acp_prev
+        current_beta = f32(1.0) - current_alpha
+        coef_x0 = np.sqrt(acp_prev) * current_beta / beta_prod_t
+        coef_xt = np.sqrt(current_alpha) * beta_prod_prev / beta_prod_t
+        var = max(beta_prod_prev / beta_prod_t * current_beta, f32(1e-20))
+        sigma = f32(float(t > 0)) * np.sqrt(f32(var))
+        return (float(np.sqrt(beta_prod_t)), float(np.sqrt(acp_t)),
+                float(coef_x0), float(coef_xt), float(sigma))
+
+    def step(self, eps: torch.Tensor, t: int, x_t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+        """One reverse step x_t -> x_{t - step_ratio} (float32)."""
+        s1, sa, c0, ct, sigma = self.coefficients(t)
+        eps = eps.float()
+        x0_hat = (x_t - s1 * eps) / sa
+        return (c0 * x0_hat + ct * x_t) + sigma * noise

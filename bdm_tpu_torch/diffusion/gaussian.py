@@ -1,0 +1,46 @@
+"""PVD's Gaussian diffusion (`bdm_tpu/diffusion/gaussian.py`): tables in
+float64, cast to float32; eps prediction; 'fixedsmall' posterior variance
+with log clipped at 1e-20; no noise at t == 0. The noise is passed in."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+f32 = np.float32
+
+
+class GaussianDiffusion:
+    def __init__(self, betas: np.ndarray, model_var_type: str = "fixedsmall"):
+        if model_var_type != "fixedsmall":
+            raise NotImplementedError(model_var_type)
+        betas = np.asarray(betas, dtype=np.float64)
+        assert (betas > 0).all() and (betas <= 1).all()
+        self.num_timesteps = len(betas)
+        alphas = 1.0 - betas
+        acp = np.cumprod(alphas)
+        acp_prev = np.append(1.0, acp[:-1])
+        post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
+        self.sqrt_recip_acp = np.sqrt(1.0 / acp).astype(f32)
+        self.sqrt_recipm1_acp = np.sqrt(1.0 / acp - 1.0).astype(f32)
+        self.posterior_mean_coef1 = (
+            betas * np.sqrt(acp_prev) / (1.0 - acp)).astype(f32)
+        self.posterior_mean_coef2 = (
+            (1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)).astype(f32)
+        self.posterior_log_variance_clipped = np.log(
+            np.maximum(post_var, 1e-20)).astype(f32)
+
+    def p_sample(self, denoise_fn, x_t: torch.Tensor, t: int,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """One reverse step at integer timestep t (shared by the batch)."""
+        t = int(t)
+        tb = torch.full((x_t.shape[0],), t, dtype=torch.long,
+                        device=x_t.device)
+        eps = denoise_fn(x_t, tb).float()
+        x0 = (float(self.sqrt_recip_acp[t]) * x_t
+              - float(self.sqrt_recipm1_acp[t]) * eps)
+        mean = (float(self.posterior_mean_coef1[t]) * x0
+                + float(self.posterior_mean_coef2[t]) * x_t)
+        sigma = f32(float(t != 0)) * np.exp(
+            f32(0.5) * self.posterior_log_variance_clipped[t])
+        return mean + float(sigma) * noise

@@ -1,0 +1,328 @@
+"""PVCNN2, the PointNet++-with-voxel-convs U-Net of PC2 and PVD
+(`bdm_tpu/models/pvcnn.py`), channel-last.
+
+Module names and parameter shapes follow the reference checkpoints
+(`sa_layers.*`, `global_att.*`, `fp_layers.*`, `classifier.*`, `embedf.*`;
+PVConv `voxel_layers.{0,1,4,5,6,7}` and `point_features`), so a released
+state_dict loads directly and `bdm_tpu/utils/convert_torch.py` maps it to
+the JAX tree. The timestep embedding is carried as (B, E) and broadcast at
+each concat site in the reference's channel position; FP stages never use
+attention (the reference's shadowed-list check, replicated).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from bdm_tpu_torch import ops
+from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, GroupNormCL,
+                                         SharedMLP, get_timestep_embedding,
+                                         swish, timestep_mlp)
+
+# (conv_configs, sa_configs) per stage; conv = (out_ch, num_blocks, voxel_res),
+# sa = (num_centers, radius, num_neighbors, mlp_channels)
+PVCNN_SA_BLOCKS = (
+    ((32, 2, 32), (1024, 0.1, 32, (32, 64))),
+    ((64, 3, 16), (256, 0.2, 32, (64, 128))),
+    ((128, 3, 8), (64, 0.4, 32, (128, 256))),
+    (None, (16, 0.8, 32, (256, 256, 512))),
+)
+# (fp_mlp_channels, conv_configs) per stage
+PVCNN_FP_BLOCKS = (
+    ((256, 256), (256, 3, 8)),
+    ((256, 256), (256, 3, 8)),
+    ((256, 128), (128, 2, 16)),
+    ((128, 128, 64), (64, 2, 32)),
+)
+
+
+@dataclass(frozen=True)
+class ConvSpec:
+    out_channels: int
+    resolution: int
+    attention: bool
+
+
+@dataclass(frozen=True)
+class SASpec:
+    num_centers: int
+    radius: float
+    num_neighbors: int
+    mlp: Tuple[int, ...]
+
+
+@dataclass(frozen=True)
+class SAStageSpec:
+    convs: Tuple[ConvSpec, ...]
+    sa: SASpec
+    out_channels: int
+
+
+@dataclass(frozen=True)
+class FPStageSpec:
+    fp_mlp: Tuple[int, ...]
+    convs: Tuple[ConvSpec, ...]
+
+
+@dataclass(frozen=True)
+class PVCNN2Specs:
+    sa_stages: Tuple[SAStageSpec, ...]
+    fp_stages: Tuple[FPStageSpec, ...]
+    sa_in_channels: Tuple[int, ...]
+    channels_sa_features: int
+
+
+def build_pvcnn2_specs(sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
+                       extra_feature_channels: int = 3,
+                       use_att: bool = True) -> PVCNN2Specs:
+    """The reference's channel accounting (`pvcnn_utils.py:72-168`):
+    stage 0 keeps all its PVConvs, later stages only the first; attention
+    on the first conv of odd stages; FP stages never attend."""
+    in_channels = extra_feature_channels + 3
+    sa_stages, sa_in_channels = [], []
+    for c, (conv_configs, sa_configs) in enumerate(sa_blocks):
+        sa_in_channels.append(in_channels)
+        convs = []
+        if conv_configs is not None:
+            out_ch, num_blocks, res = conv_configs
+            for p in range(num_blocks):
+                attention = ((c + 1) % 2 == 0) and use_att and p == 0
+                if c == 0 or p == 0:
+                    convs.append(ConvSpec(out_ch, res, attention))
+                in_channels = out_ch
+        num_centers, radius, num_neighbors, mlp = sa_configs
+        sa_stages.append(SAStageSpec(
+            tuple(convs), SASpec(num_centers, radius, num_neighbors,
+                                 tuple(mlp)), mlp[-1]))
+        in_channels = mlp[-1]
+    sa_in_channels[0] = extra_feature_channels
+    fp_stages = []
+    for fp_mlp, conv_configs in fp_blocks:
+        convs = []
+        if conv_configs is not None:
+            out_ch, num_blocks, res = conv_configs
+            convs = [ConvSpec(out_ch, res, False)] * num_blocks
+        fp_stages.append(FPStageSpec(tuple(fp_mlp), tuple(convs)))
+    return PVCNN2Specs(tuple(sa_stages), tuple(fp_stages),
+                       tuple(sa_in_channels), in_channels)
+
+
+class VoxConv(nn.Module):
+    """3x3x3 SAME conv with the reference Conv3d's parameters
+    (weight (Cout, Cin, 3, 3, 3), bias), on channel-last grids."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3, 3))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def forward(self, grid: torch.Tensor) -> torch.Tensor:
+        return ops.voxel_conv3d(grid, self.weight, self.bias)
+
+
+class PVConv(nn.Module):
+    """Point-voxel conv (`modules/pvconv.py:65-97`): voxelize -> [conv ->
+    GN -> swish -> conv -> GN -> attention | swish] -> devoxelize, gated by
+    SE on the points, plus the pointwise SharedMLP branch.
+
+    Voxel grids run in the compute dtype (bf16 in production); geometry
+    stays float32."""
+
+    def __init__(self, cin: int, cout: int, resolution: int,
+                 attention: bool, dtype=None):
+        super().__init__()
+        self.resolution = resolution
+        self.attention = attention
+        self.dtype = dtype
+        self.voxel_layers = nn.ModuleList([
+            VoxConv(cin, cout), GroupNormCL(8, cout), nn.SiLU(),
+            nn.Dropout(), VoxConv(cout, cout), GroupNormCL(8, cout),
+            Attention(cout, 8, kdims=3, dtype=dtype) if attention
+            else nn.SiLU(),
+            SE(cout, dtype=dtype)])
+        self.point_features = SharedMLP(cin, (cout,), kdims=1, dtype=dtype)
+
+    def forward(self, features: torch.Tensor,
+                ctx: ops.VoxelContext) -> torch.Tensor:
+        vl = self.voxel_layers
+        dt = self.dtype or torch.float32
+        r = self.resolution
+        g = ops.avg_voxelize(features, ctx, r, out_dtype=dt)
+        g = swish(vl[1](vl[0](g), dt))
+        g = vl[5](vl[4](g), dt)
+        if self.attention:
+            b, c = g.shape[0], g.shape[-1]
+            g = vl[6](g.reshape(b, r ** 3, c)).reshape(g.shape)
+        else:
+            g = swish(g)
+        gate = vl[7](g)                                          # (B, C)
+        vox = ops.trilinear_devoxelize(g, ctx.norm_coords).to(dt)
+        vox = vox * gate[:, None, :].to(dt)
+        return vox + self.point_features(features).to(dt)
+
+
+class PointNetSA(nn.Module):
+    """Set abstraction (`modules/pointnet.py:49-93`): FPS centres ->
+    ball-query grouping with relative coordinates -> SharedMLP -> max."""
+
+    def __init__(self, spec: SASpec, cin: int, dtype=None):
+        super().__init__()
+        self.spec = spec
+        self.dtype = dtype
+        self.mlps = nn.ModuleList(
+            [SharedMLP(cin + 3, spec.mlp, kdims=2, dtype=dtype)])
+
+    def forward(self, features: torch.Tensor, coords: torch.Tensor):
+        s = self.spec
+        dt = self.dtype or torch.float32
+        idx = ops.furthest_point_sample(coords, s.num_centers)
+        centers = ops.gather(coords, idx)                        # (B, M, 3)
+        nbr = ops.ball_query(centers, coords, s.radius, s.num_neighbors)
+        both = ops.grouping(torch.cat([coords.to(dt), features.to(dt)], -1),
+                            nbr)                                 # (B, M, U, .)
+        nbr_feats = torch.cat(
+            [both[..., :3] - centers[:, :, None, :].to(dt), both[..., 3:]],
+            dim=-1)
+        f = self.mlps[0](nbr_feats).amax(dim=2).to(dt)
+        return f, centers
+
+
+class PointNetFP(nn.Module):
+    """Feature propagation (`modules/pointnet.py:96-113`): 3-NN
+    interpolation, then [features | temb | skip] -> SharedMLP."""
+
+    def __init__(self, cin: int, mlp, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.mlp = SharedMLP(cin, mlp, kdims=1, dtype=dtype)
+
+    def forward(self, fine_coords, coarse_coords, coarse_features, skip,
+                temb):
+        dt = self.dtype or torch.float32
+        f = ops.three_nn_interpolate(fine_coords, coarse_coords,
+                                     coarse_features)
+        n = fine_coords.shape[1]
+        parts = [f.to(dt), temb[:, None, :].to(dt).expand(-1, n, -1)]
+        if skip.shape[-1] > 0:
+            parts.append(skip.to(dt))
+        return self.mlp(torch.cat(parts, dim=-1)).to(dt)
+
+
+class PVCNN2(nn.Module):
+    """The noise-prediction backbone (`pvcnn.py:10-150`):
+    forward(inputs (B, N, 3 + S), t (B,)) -> (B, N, out_channels) float32.
+    Coordinates are the first 3 input channels."""
+
+    def __init__(self, out_channels: int = 3, embed_dim: int = 64,
+                 extra_feature_channels: int = 3, use_att: bool = True,
+                 sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
+                 classifier_init_scale: Optional[float] = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.use_att = use_att
+        self.classifier_init_scale = classifier_init_scale
+        self.dtype = dtype
+        specs = build_pvcnn2_specs(sa_blocks, fp_blocks,
+                                   extra_feature_channels, use_att)
+        self.specs = specs
+        self.embedf = timestep_mlp(embed_dim)
+
+        sa_layers = []
+        for i, stage in enumerate(specs.sa_stages):
+            cin = (extra_feature_channels + 3 if i == 0
+                   else specs.sa_in_channels[i] + embed_dim)
+            convs = []
+            for cs in stage.convs:
+                convs.append(PVConv(cin, cs.out_channels, cs.resolution,
+                                    cs.attention, dtype))
+                cin = cs.out_channels
+            sa = PointNetSA(stage.sa, cin, dtype)
+            sa_layers.append(nn.Sequential(*convs, sa) if convs else sa)
+        self.sa_layers = nn.ModuleList(sa_layers)
+        ch = specs.channels_sa_features
+        if use_att:
+            self.global_att = Attention(ch, 8, kdims=1, dtype=dtype)
+
+        fp_layers = []
+        for k, stage in enumerate(specs.fp_stages):
+            fp = PointNetFP(ch + embed_dim + specs.sa_in_channels[-1 - k],
+                            stage.fp_mlp, dtype)
+            ch = stage.fp_mlp[-1]
+            convs = []
+            for cs in stage.convs:
+                convs.append(PVConv(ch, cs.out_channels, cs.resolution,
+                                    False, dtype))
+                ch = cs.out_channels
+            fp_layers.append(nn.Sequential(fp, *convs))
+        self.fp_layers = nn.ModuleList(fp_layers)
+        self.classifier = nn.Sequential(
+            SharedMLP(ch, (128,), kdims=1, dtype=dtype), nn.Dropout(),
+            Conv1x1(128, out_channels, 1))
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        """Random weights from `seed`: fan-in uniform weights, zero biases,
+        unit norms; the classifier head N(0, scale^2) when
+        `classifier_init_scale` is set (PC2's 1e-6 re-init,
+        `point_cloud_model.py:38-39`)."""
+        g = torch.Generator().manual_seed(seed)
+        for p in self.parameters():
+            if p.ndim >= 2:
+                bound = 1.0 / np.sqrt(int(np.prod(p.shape[1:])))
+                p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * bound)
+            else:
+                p.zero_()
+        for m in self.modules():
+            if isinstance(m, GroupNormCL):
+                m.weight.fill_(1.0)
+        if self.classifier_init_scale is not None:
+            head = self.classifier[2]
+            for p in (head.weight, head.bias):
+                p.copy_(torch.randn(p.shape, generator=g)
+                        * self.classifier_init_scale)
+
+    def forward(self, inputs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.float32
+        temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
+        coords = inputs[..., :3].float()
+        features = inputs if self.dtype is None else inputs.to(self.dtype)
+
+        coords_list, skips = [], []
+        for i, layer in enumerate(self.sa_layers):
+            skips.append(features)
+            coords_list.append(coords)
+            if i == 0:
+                f = features
+            else:
+                n = features.shape[1]
+                f = torch.cat([features.to(dt),
+                               temb[:, None, :].to(dt).expand(-1, n, -1)], -1)
+            convs, sa = (list(layer)[:-1], layer[-1]) \
+                if isinstance(layer, nn.Sequential) else ([], layer)
+            if convs:
+                ctx = ops.make_voxel_context(coords, convs[0].resolution)
+                for conv in convs:
+                    f = conv(f, ctx)
+            features, coords = sa(f, coords)
+        if self.use_att:
+            features = self.global_att(features).to(dt)
+        skips[0] = inputs[..., 3:]
+
+        for k, layer in enumerate(self.fp_layers):
+            fine = coords_list[-1 - k]
+            features = layer[0](fine, coords, features, skips[-1 - k], temb)
+            coords = fine
+            convs = list(layer)[1:]
+            if convs:
+                ctx = ops.make_voxel_context(coords, convs[0].resolution)
+                for conv in convs:
+                    features = conv(features, ctx)
+
+        f = self.classifier[0](features).float()
+        return self.classifier[2](f, torch.float32)

@@ -1,0 +1,130 @@
+"""Build and load the Hopper kernels of `bdm_tpu_torch/csrc/`.
+
+The sources are compiled with `nvcc` for `sm_90a` into one shared library
+with a plain C interface, loaded with `ctypes`. The build runs at the first
+launch (or an explicit `build()`), lands in `bdm_tpu_torch/_build/` (listed
+in `.gitignore`) and is keyed on a hash of the sources, so an edited kernel
+is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import: without `nvcc` or a GPU the package imports
+and only a launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argument types (pointers and the stream as void*)
+_SIGNATURES = {
+    "bdm_fps": (_P, _P, _I, _I, _I, _P),
+    "bdm_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "bdm_scatter_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "bdm_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bdm_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libbdm_kernels_{_source_hash()}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    # build into a temporary name, then rename: concurrent builds never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o", tmp, *cu]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.bdm_error_string.argtypes = [ctypes.c_int]
+        lib.bdm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one kernel entry point on the current stream; raise if CUDA
+    refused the launch."""
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.bdm_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def check(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of one of `dtypes`
+    with `ndim` dimensions."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")

@@ -1,0 +1,49 @@
+"""Voxel self-attention: the `csrc/attention.cu` kernel and its plain
+version.
+
+Replaces `_attention_pallas_fwd_only` (bdm_tpu/ops/pallas/attention.py):
+softmax(q k^T) v with no 1/sqrt(C) scale, float32 logits and softmax,
+weights cast to v's type before the second product.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bdm_tpu_torch.ops.cuda import _lib
+
+launches = 0
+plain_cuda_calls = 0
+MAX_CHANNELS = 128
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """q, k, v (B, S, C) -> (B, S, C) in v's dtype."""
+    global plain_cuda_calls
+    if q.is_cuda:
+        plain_cuda_calls += 1
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(w.float(), v.float()).to(v.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    global launches
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _lib.check(t, name, (v.dtype,), 3)
+    if v.dtype not in _lib.DTYPE_CODES:
+        raise TypeError(f"attention: dtype {v.dtype}")
+    b, s, c = q.shape
+    if k.shape != q.shape or v.shape != q.shape or c > MAX_CHANNELS:
+        raise ValueError(f"attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"(C <= {MAX_CHANNELS})")
+    out = torch.empty_like(v)
+    _lib.launch("bdm_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), b, s, c, _lib.DTYPE_CODES[v.dtype])
+    launches += 1
+    return out

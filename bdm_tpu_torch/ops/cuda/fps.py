@@ -1,0 +1,61 @@
+"""Furthest point sampling: the `csrc/fps.cu` kernel and its plain version.
+
+Replaces `furthest_point_sample_pallas` (bdm_tpu/ops/pallas/fps.py). A CPU
+tensor goes to the plain version; a CUDA tensor launches the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bdm_tpu_torch.ops.cuda import _lib
+
+launches = 0          # kernel launches
+plain_cuda_calls = 0  # plain-version calls on CUDA tensors
+
+
+def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(dx*dx + dy*dy) + dz*dz of a - b over the last axis: the
+    evaluation order of the JAX reference and of the kernels."""
+    d = a - b
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def furthest_point_sample_plain(coords: torch.Tensor,
+                                num_samples: int) -> torch.Tensor:
+    """(B, N, 3) float32 -> (B, M) int32; index 0 first, then the argmax of
+    the running min squared distance, lowest index on ties."""
+    global plain_cuda_calls
+    if coords.is_cuda:
+        plain_cuda_calls += 1
+    b, n, _ = coords.shape
+    m = int(num_samples)
+    out = torch.zeros((b, m), dtype=torch.int32, device=coords.device)
+    dist = torch.full((b, n), 1e38, dtype=torch.float32, device=coords.device)
+    last = coords[:, 0, :]
+    rows = torch.arange(b, device=coords.device)
+    for j in range(1, m):
+        dist = torch.minimum(dist, sqdist(coords, last[:, None, :]))
+        best = torch.argmax(dist, dim=1)        # first maximal index
+        out[:, j] = best.to(torch.int32)
+        last = coords[rows, best]
+    return out
+
+
+def furthest_point_sample(coords: torch.Tensor,
+                          num_samples: int) -> torch.Tensor:
+    """(B, N, 3) float32 -> (B, M) int32 furthest point sample."""
+    global launches
+    if coords.device.type == "cpu":
+        return furthest_point_sample_plain(coords, num_samples)
+    _lib.check(coords, "coords", (torch.float32,), 3)
+    b, n, c = coords.shape
+    m = int(num_samples)
+    if c != 3 or not 1 <= m <= n:
+        raise ValueError(f"fps: coords {tuple(coords.shape)}, M={m}")
+    if 16 * n > 227 * 1024:
+        raise ValueError(f"fps: N={n} does not fit in shared memory")
+    out = torch.empty((b, m), dtype=torch.int32, device=coords.device)
+    _lib.launch("bdm_fps", coords.data_ptr(), out.data_ptr(), b, n, m)
+    launches += 1
+    return out

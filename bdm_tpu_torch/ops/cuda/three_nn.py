@@ -1,0 +1,66 @@
+"""Three nearest neighbours: the `csrc/three_nn.cu` kernel and its plain
+version.
+
+Replaces `three_nn_pallas` (bdm_tpu/ops/pallas/three_nn.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bdm_tpu_torch.ops.cuda import _lib
+from bdm_tpu_torch.ops.cuda.fps import sqdist
+
+launches = 0
+plain_cuda_calls = 0
+
+
+def idw_weights(best: torch.Tensor) -> torch.Tensor:
+    """(..., 3) squared distances -> inverse-distance weights, after the
+    [1e-10, 1e10] clamp, in the reference's evaluation order."""
+    best = torch.clamp(best, 1e-10, 1e10)
+    d0, d1, d2 = best[..., 0], best[..., 1], best[..., 2]
+    denom = (d0 * d1 + d0 * d2) + d1 * d2
+    return torch.stack([d1 * d2, d0 * d2, d0 * d1], dim=-1) / denom[..., None]
+
+
+def three_nn_plain(points: torch.Tensor, centers: torch.Tensor):
+    """(B, N, 3), (B, M, 3) -> (idx (B, N, 3) int32, w (B, N, 3) float32);
+    three masked argmins, so the lower index wins a tie."""
+    global plain_cuda_calls
+    if points.is_cuda:
+        plain_cuda_calls += 1
+    m = centers.shape[1]
+    d2 = sqdist(points[:, :, None, :], centers[:, None, :, :])   # (B, N, M)
+    cur = d2.clone()
+    bests, idxs = [], []
+    for _ in range(min(3, m)):
+        i = torch.argmin(cur, dim=-1, keepdim=True)               # first min
+        bests.append(torch.gather(d2, -1, i))
+        idxs.append(i)
+        cur.scatter_(-1, i, float("inf"))
+    while len(idxs) < 3:  # degenerate M < 3: repeat the last centre
+        bests.append(bests[-1])
+        idxs.append(idxs[-1])
+    best = torch.cat(bests, dim=-1)
+    idx = torch.cat(idxs, dim=-1).to(torch.int32)
+    return idx, idw_weights(best)
+
+
+def three_nn(points: torch.Tensor, centers: torch.Tensor):
+    global launches
+    if points.device.type == "cpu":
+        return three_nn_plain(points, centers)
+    _lib.check(points, "points", (torch.float32,), 3)
+    _lib.check(centers, "centers", (torch.float32,), 3)
+    b, n, _ = points.shape
+    m = centers.shape[1]
+    if points.shape[-1] != 3 or centers.shape[::2] != (b, 3) or m < 3:
+        raise ValueError(f"three_nn: points {tuple(points.shape)}, "
+                         f"centers {tuple(centers.shape)} (needs M >= 3)")
+    idx = torch.empty((b, n, 3), dtype=torch.int32, device=points.device)
+    w = torch.empty((b, n, 3), dtype=torch.float32, device=points.device)
+    _lib.launch("bdm_three_nn", points.data_ptr(), centers.data_ptr(),
+                idx.data_ptr(), w.data_ptr(), b, n, m)
+    launches += 1
+    return idx, w

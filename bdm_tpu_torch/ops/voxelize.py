@@ -1,0 +1,100 @@
+"""Voxelization and trilinear devoxelization (`bdm_tpu/ops/voxelize.py`).
+
+The voxel context (normalized coordinates, voxel ids, their stable sort and
+the run start of every voxel in the sorted order) depends on the
+coordinates alone and is shared by every PVConv of a stage. The
+scatter-mean runs in the `csrc/voxelize.cu` kernel; devoxelization is plain
+PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bdm_tpu_torch.ops.cuda import voxelize as _vox
+
+
+def normalize_coords(coords: torch.Tensor, resolution: int,
+                     normalize: bool = True, eps: float = 0.0):
+    """(B, N, 3) -> (norm_coords in [0, R-1] float32, vox_coords int32):
+    centre on the mean, scale by twice the max point norm, shift by 0.5,
+    scale to voxel units, clamp; ids round half to even."""
+    coords = coords.float()
+    centered = coords - coords.mean(dim=1, keepdim=True)
+    if normalize:
+        c = centered
+        norm = torch.sqrt((c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1])
+                          + c[..., 2] * c[..., 2])                  # (B, N)
+        denom = norm.amax(dim=1)[:, None, None] * 2.0 + eps
+        norm_coords = centered / denom + 0.5
+    else:
+        norm_coords = (centered + 1.0) / 2.0
+    norm_coords = torch.clamp(norm_coords * resolution, 0.0, resolution - 1)
+    return norm_coords, torch.round(norm_coords).to(torch.int32)
+
+
+class VoxelContext(NamedTuple):
+    norm_coords: torch.Tensor   # (B, N, 3) float32 in [0, R-1]
+    ids: torch.Tensor           # (B, N) int32, id = x*R^2 + y*R + z
+    order: torch.Tensor         # (B, N) int32 stable argsort of ids
+    ids_sorted: torch.Tensor    # (B, N) int32
+    voxel_lo: torch.Tensor      # (B, R^3 + 1) int32 run start per voxel
+
+
+def make_voxel_context(coords: torch.Tensor, resolution: int,
+                       normalize: bool = True,
+                       eps: float = 0.0) -> VoxelContext:
+    b = coords.shape[0]
+    r = resolution
+    r3 = r ** 3
+    norm_coords, vox = normalize_coords(coords, r, normalize, eps)
+    ids = (vox[..., 0] * (r * r) + vox[..., 1] * r + vox[..., 2]).to(
+        torch.int32)
+    ids_sorted, order = torch.sort(ids, dim=1, stable=True)
+    flat = ids_sorted.long() + torch.arange(b, device=ids.device)[:, None] * r3
+    counts = torch.bincount(flat.reshape(-1), minlength=b * r3).reshape(b, r3)
+    voxel_lo = torch.cat(
+        [torch.zeros((b, 1), dtype=torch.int64, device=ids.device),
+         torch.cumsum(counts, dim=1)], dim=1).to(torch.int32)
+    return VoxelContext(norm_coords, ids, order.to(torch.int32).contiguous(),
+                        ids_sorted.contiguous(), voxel_lo.contiguous())
+
+
+def avg_voxelize(features: torch.Tensor, ctx: VoxelContext, resolution: int,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Scatter-mean (B, N, C) point features into the (B, R, R, R, C) grid
+    (empty voxels zero), rounded once to `out_dtype`."""
+    return _vox.scatter_mean(features.contiguous(), ctx.order, ctx.ids_sorted,
+                             ctx.voxel_lo, resolution, out_dtype)
+
+
+def trilinear_devoxelize(grid: torch.Tensor,
+                         norm_coords: torch.Tensor) -> torch.Tensor:
+    """Sample (B, R, R, R, C) at float coords in [0, R-1] -> (B, N, C)
+    float32. The upper corner along an axis is used only when its
+    fractional part is > 0 (`trilinear_devox.cu` corner rule)."""
+    b, r = grid.shape[:2]
+    c = grid.shape[-1]
+    n = norm_coords.shape[1]
+    lo_f = torch.floor(norm_coords)
+    frac = norm_coords - lo_f
+    lo = lo_f.long()
+    step = (frac > 0).long()
+    flat = grid.reshape(b, r ** 3, c)
+    strides = (r * r, r, 1)
+    base = lo[..., 0] * strides[0] + lo[..., 1] * strides[1] + lo[..., 2]
+    out = torch.zeros((b, n, c), dtype=torch.float32, device=grid.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                idx = (base + dx * step[..., 0] * strides[0]
+                       + dy * step[..., 1] * strides[1]
+                       + dz * step[..., 2] * strides[2])
+                w = ((frac[..., 0] if dx else 1.0 - frac[..., 0])
+                     * (frac[..., 1] if dy else 1.0 - frac[..., 1])
+                     * (frac[..., 2] if dz else 1.0 - frac[..., 2]))
+                vals = torch.gather(flat, 1, idx[..., None].expand(b, n, c))
+                out = out + w[..., None] * vals.float()
+    return out

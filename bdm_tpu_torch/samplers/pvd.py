@@ -1,0 +1,48 @@
+"""PVD, the unconditional point-cloud prior (`bdm_tpu/samplers/pvd.py`):
+a PVCNN2 with no extra feature channels driven by the 'fixedsmall'
+Gaussian diffusion, betas linear(1e-4, 0.02, 1000)."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn as nn
+
+from bdm_tpu_torch.diffusion import GaussianDiffusion, pvd_betas
+from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
+                                        PVCNN2)
+from bdm_tpu_torch.samplers.pc2 import compute_dtype_of
+
+
+class PVDModel(nn.Module):
+    """State-dict keys `model.*`, as the reference PVD checkpoint."""
+
+    def __init__(self, embed_dim: int = 64, use_att: bool = True,
+                 beta_start: float = 1e-4, beta_end: float = 2e-2,
+                 num_timesteps: int = 1000, sa_blocks=PVCNN_SA_BLOCKS,
+                 fp_blocks=PVCNN_FP_BLOCKS, mixed_precision: str = "no"):
+        super().__init__()
+        self.model = PVCNN2(out_channels=3, embed_dim=embed_dim,
+                            extra_feature_channels=0, use_att=use_att,
+                            sa_blocks=sa_blocks, fp_blocks=fp_blocks,
+                            classifier_init_scale=None,
+                            dtype=compute_dtype_of(mixed_precision))
+        self.diffusion = GaussianDiffusion(
+            pvd_betas(beta_start, beta_end, num_timesteps))
+
+    def reset_parameters(self, seed: int = 0) -> None:
+        self.model.reset_parameters(seed)
+
+    @torch.inference_mode()
+    def generate_window(self, x: torch.Tensor, start_time: int,
+                        final_time: int,
+                        noise: Callable[[int, int], torch.Tensor]
+                        ) -> torch.Tensor:
+        """Reverse-diffuse x (B, N, 3) from t = start_time - 1 down to
+        t = final_time; `noise(j, n_steps)` gives step j's noise."""
+        steps = int(start_time) - int(final_time)
+        for j, t in enumerate(range(int(start_time) - 1,
+                                    int(final_time) - 1, -1)):
+            x = self.diffusion.p_sample(self.model, x, t, noise(j, steps))
+        return x

@@ -1,0 +1,165 @@
+"""JAX parameter trees (numpy leaves) -> `bdm_tpu_torch` state_dicts.
+
+The inverse of `bdm_tpu/utils/convert_torch.py`: it produces the reference
+checkpoints' keys, which the port's modules use, so a tree converted here,
+loaded into the port and sent back through `convert_torch` is bit-identical
+to the original. Layout rules (flax -> torch):
+
+  Dense kernel (in, out)            -> weight (out, in), or (out, in, 1...)
+  Conv kernel (3, 3, 3, in, out)    -> weight (out, in, 3, 3, 3)
+  patch embed (p, p, 3, D)          -> weight (D, 3, p, p)
+  MHA query/key/value (D, H, Dh)    -> rows of the fused qkv (3D, D)
+  GroupNorm / LayerNorm scale       -> weight
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from bdm_tpu_torch.models.pvcnn import PVCNN2Specs
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _dense(out: Dict, prefix: str, p: Dict) -> None:
+    out[f"{prefix}.weight"] = np.ascontiguousarray(_np(p["kernel"]).T)
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _norm(out: Dict, prefix: str, p: Dict) -> None:
+    out[f"{prefix}.weight"] = _np(p["scale"])
+    out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _shared_mlp(out: Dict, prefix: str, p: Dict) -> None:
+    j = 0
+    while f"conv{j}" in p:
+        _dense(out, f"{prefix}.layers.{3 * j}", p[f"conv{j}"])
+        _norm(out, f"{prefix}.layers.{3 * j + 1}", p[f"norm{j}"])
+        j += 1
+
+
+def _attention(out: Dict, prefix: str, p: Dict) -> None:
+    for name in ("q", "k", "v", "out"):
+        _dense(out, f"{prefix}.{name}", p[name])
+    _norm(out, f"{prefix}.norm", p["norm"])
+
+
+def _conv3d(out: Dict, prefix: str, p: Dict) -> None:
+    out[f"{prefix}.weight"] = np.ascontiguousarray(
+        np.transpose(_np(p["kernel"]), (4, 3, 0, 1, 2)))
+    out[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _pvconv(out: Dict, prefix: str, p: Dict) -> None:
+    _conv3d(out, f"{prefix}.voxel_layers.0", p["vconv0"])
+    _norm(out, f"{prefix}.voxel_layers.1", p["vnorm0"])
+    _conv3d(out, f"{prefix}.voxel_layers.4", p["vconv1"])
+    _norm(out, f"{prefix}.voxel_layers.5", p["vnorm1"])
+    if "vatt" in p:
+        _attention(out, f"{prefix}.voxel_layers.6", p["vatt"])
+    out[f"{prefix}.voxel_layers.7.fc.0.weight"] = np.ascontiguousarray(
+        _np(p["se"]["fc1"]["kernel"]).T)
+    out[f"{prefix}.voxel_layers.7.fc.2.weight"] = np.ascontiguousarray(
+        _np(p["se"]["fc2"]["kernel"]).T)
+    _shared_mlp(out, f"{prefix}.point_features", p["point_features"])
+
+
+def pvcnn2_state_dict(params: Dict, specs: PVCNN2Specs,
+                      prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX PVCNN2 tree ({'params': ...} or its inside) -> reference keys
+    (PC2 and PVD backbones alike)."""
+    p = params.get("params", params)
+    pre = f"{prefix}." if prefix else ""
+    out: Dict[str, np.ndarray] = {}
+    _dense(out, f"{pre}embedf.0", p["embedf"]["fc1"])
+    _dense(out, f"{pre}embedf.2", p["embedf"]["fc2"])
+    enc, dec = p["encoder"], p["decoder"]
+    for i, stage in enumerate(specs.sa_stages):
+        base = f"{pre}sa_layers.{i}"
+        for k in range(len(stage.convs)):
+            _pvconv(out, f"{base}.{k}", enc[f"sa{i}_conv{k}"])
+        sa = f"{base}.{len(stage.convs)}" if stage.convs else base
+        _shared_mlp(out, f"{sa}.mlps.0", enc[f"sa{i}_pool"]["mlp"])
+    if "global_att" in enc:
+        _attention(out, f"{pre}global_att", enc["global_att"])
+    for i, stage in enumerate(specs.fp_stages):
+        base = f"{pre}fp_layers.{i}"
+        _shared_mlp(out, f"{base}.0.mlp", dec[f"fp{i}_mlp"]["mlp"])
+        for k in range(len(stage.convs)):
+            _pvconv(out, f"{base}.{k + 1}", dec[f"fp{i}_conv{k}"])
+    _shared_mlp(out, f"{pre}classifier.0", dec["classifier_mlp"])
+    _dense(out, f"{pre}classifier.2", dec["classifier_out"])
+    return out
+
+
+def vit_state_dict(vit: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX VisionTransformer tree (the `vit` subtree) -> timm keys."""
+    pre = f"{prefix}." if prefix else ""
+    out: Dict[str, np.ndarray] = {
+        f"{pre}cls_token": _np(vit["cls_token"]),
+        f"{pre}pos_embed": _np(vit["pos_embed"]),
+        f"{pre}patch_embed.proj.weight": np.ascontiguousarray(
+            np.transpose(_np(vit["patch_embed"]["kernel"]), (3, 2, 0, 1))),
+        f"{pre}patch_embed.proj.bias": _np(vit["patch_embed"]["bias"]),
+    }
+    _norm(out, f"{pre}norm", vit["norm"])
+    i = 0
+    while f"block{i}" in vit:
+        blk, b = vit[f"block{i}"], f"{pre}blocks.{i}"
+        _norm(out, f"{b}.norm1", blk["norm1"])
+        _norm(out, f"{b}.norm2", blk["norm2"])
+        att = blk["attn"]
+        d = _np(att["query"]["kernel"]).shape[0]
+        out[f"{b}.attn.qkv.weight"] = np.concatenate(
+            [_np(att[n]["kernel"]).reshape(d, d).T
+             for n in ("query", "key", "value")], axis=0)
+        out[f"{b}.attn.qkv.bias"] = np.concatenate(
+            [_np(att[n]["bias"]).reshape(d) for n in ("query", "key",
+                                                      "value")])
+        out[f"{b}.attn.proj.weight"] = np.ascontiguousarray(
+            _np(att["out"]["kernel"]).reshape(d, d).T)
+        out[f"{b}.attn.proj.bias"] = _np(att["out"]["bias"])
+        _dense(out, f"{b}.mlp.fc1", blk["mlp"]["fc1"])
+        _dense(out, f"{b}.mlp.fc2", blk["mlp"]["fc2"])
+        i += 1
+    return out
+
+
+def pc2_state_dict(params: Dict, specs: PVCNN2Specs) -> Dict[str, np.ndarray]:
+    """JAX PC2 params {'feature_model', 'point_cloud_model'} -> the
+    reference PC2 keys (`point_cloud_model.model.*`,
+    `feature_model.model.*`)."""
+    out = pvcnn2_state_dict(params["point_cloud_model"], specs,
+                            "point_cloud_model.model")
+    fm = params.get("feature_model", {})
+    fm = fm.get("params", fm)
+    if "vit" in fm:
+        out.update(vit_state_dict(fm["vit"], "feature_model.model"))
+    return out
+
+
+def pvd_state_dict(params: Dict, specs: PVCNN2Specs) -> Dict[str, np.ndarray]:
+    """JAX PVD backbone params -> the reference PVD keys (`model.*`)."""
+    return pvcnn2_state_dict(params, specs, "model")
+
+
+def load_into(module: nn.Module, state: Dict[str, np.ndarray]) -> None:
+    """Load a converted state_dict, reshaping 1x1 weights to the module's
+    (out, in, 1...) shapes; every key must match (strict)."""
+    target = module.state_dict()
+    missing = set(target) - set(state)
+    extra = set(state) - set(target)
+    if missing or extra:
+        raise KeyError(f"missing {sorted(missing)[:5]}, "
+                       f"unexpected {sorted(extra)[:5]}")
+    module.load_state_dict({
+        k: torch.tensor(np.asarray(v)).reshape(target[k].shape)
+        for k, v in state.items()})

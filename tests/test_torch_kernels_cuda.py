@@ -1,0 +1,83 @@
+"""The six Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
+versions, on the card. Without a CUDA device every test here skips (a
+CUDA kernel has no CPU mode). This file imports torch only, so it also
+runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+
+Tolerances: indices exact; float32 results 1e-5 of the largest value
+(the same float32 operations, summed in another order for the conv and
+attention); bfloat16 outputs 1e-2 of the largest value (one bfloat16
+rounding of sums that differ in their last float32 bits).
+"""
+
+import pytest
+import torch
+
+from bdm_tpu_torch import ops
+from bdm_tpu_torch.ops import cuda as kernels
+from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
+                                    conv3d as k_conv, fps as k_fps,
+                                    three_nn as k_tnn, voxelize as k_vox)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _cloud(dev, *shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g).to(dev)
+
+
+def test_geometry_kernels_exact(dev):
+    x = _cloud(dev, 2, 2048, 3)            # two point tiles per scan
+    idx = k_fps.furthest_point_sample(x, 256)
+    assert torch.equal(idx, k_fps.furthest_point_sample_plain(x, 256))
+    c = ops.gather(x, idx).contiguous()
+    for r in (0.1, 0.4):
+        assert torch.equal(k_bq.ball_query(c, x, r, 32),
+                           k_bq.ball_query_plain(c, x, r, 32))
+    i, w = k_tnn.three_nn(x, c)
+    pi, pw = k_tnn.three_nn_plain(x, c)
+    assert torch.equal(i, pi)
+    assert _rel(w, pw) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_conv_attention(dev, dtype):
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    x = _cloud(dev, 2, 1024, 3, seed=1)
+    ctx = ops.make_voxel_context(x, 8)
+    f = _cloud(dev, 2, 1024, 40, seed=2).to(dtype)
+    args = (f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 8, dtype)
+    grid = k_vox.scatter_mean(*args)
+    assert grid.dtype == dtype
+    assert _rel(grid, k_vox.scatter_mean_plain(*args)) < tol
+    wt = _cloud(dev, 16, 40, 3, 3, 3, seed=3) * 0.05
+    bias = _cloud(dev, 16, seed=4)
+    assert _rel(k_conv.conv3d(grid, wt, bias),
+                k_conv.conv3d_plain(grid, wt, bias)) < tol
+    q = (_cloud(dev, 2, 600, 64, seed=5) * 0.3).to(dtype)
+    assert _rel(k_attn.attention(q, q, q),
+                k_attn.attention_plain(q, q, q)) < tol
+
+
+def test_launch_counters(dev):
+    kernels.reset_counts()
+    x = _cloud(dev, 1, 256, 3)
+    k_fps.furthest_point_sample(x, 16)
+    k_fps.furthest_point_sample_plain(x, 16)
+    assert kernels.counts()["fps"] == (1, 1)

@@ -1,0 +1,286 @@
+"""Point ops and kernel plain versions of `bdm_tpu_torch` against `bdm_tpu`.
+
+Inputs come from numpy seeds and go through the JAX function (its CPU
+dispatch, and the Pallas kernel in interpret mode where one exists) and
+through the port. Tolerances:
+  * FPS, ball query, three-NN indices: exact (the port evaluates distances
+    in the reference's order), including tie and radius-boundary cases;
+  * float results, port plain vs JAX plain at float32: 1e-5 relative
+    (the two frameworks sum in different orders);
+  * port plain vs Pallas interpret: 3e-2 relative and absolute, because
+    the Pallas kernels contract in bfloat16 (the bench's per-kernel bound).
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_kernels_cuda.py.
+"""
+
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bdm_tpu import ops as jops
+from bdm_tpu.ops.pallas.attention import _attention_pallas_fwd_only
+from bdm_tpu.ops.pallas.ball_query import ball_query_pallas
+from bdm_tpu.ops.pallas.conv3d import conv3d_mm_pallas, conv3d_ms_pallas
+from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
+from bdm_tpu.ops.pallas.three_nn import three_nn_pallas
+from bdm_tpu.ops.pallas.voxelize import scatter_sum_sorted_padded_pallas
+from bdm_tpu.ops.voxelize import run_counts_sorted
+from bdm_tpu_torch import ops
+from bdm_tpu_torch.ops import cuda as kernels
+from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
+                                    conv3d as k_conv, fps as k_fps,
+                                    three_nn as k_tnn, voxelize as k_vox)
+
+F32_RTOL = 1e-5
+BF16_TOL = 3e-2
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+def _close(got, want, rtol):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max()) + 1e-12
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
+
+
+def _cloud(seed, b, n):
+    return np.random.default_rng(seed).standard_normal((b, n, 3)).astype(
+        np.float32)
+
+
+def _lattice(b, n):
+    """Integer lattice points: many exactly equal distances."""
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    pts = np.concatenate([g] * (n // len(g) + 1))[:n].astype(np.float32)
+    return np.broadcast_to(pts, (b, n, 3)).copy()
+
+
+# ----------------------------------------------------------------- FPS
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_fps_exact(case):
+    x = _cloud(0, 2, 256) if case == "random" else _lattice(2, 96)
+    m = 32
+    got = ops.furthest_point_sample(_t(x), m).numpy()
+    want = np.asarray(jops.furthest_point_sample(jnp.asarray(x), m,
+                                                 use_pallas=False))
+    pallas = np.asarray(furthest_point_sample_pallas(jnp.asarray(x), m,
+                                                     interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pallas)
+
+
+# ---------------------------------------------------------- ball query
+
+def test_ball_query_exact_random():
+    x = _cloud(1, 2, 256) * 0.5
+    c = x[:, :64]
+    for r in (0.1, 0.4):
+        got = ops.ball_query(_t(c), _t(x), r, 8).numpy()
+        want = np.asarray(jops.ball_query(jnp.asarray(c), jnp.asarray(x), r,
+                                          8, use_pallas=False))
+        pallas = np.asarray(ball_query_pallas(jnp.asarray(c), jnp.asarray(x),
+                                              r, 8, interpret=True))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, pallas)
+
+
+def test_ball_query_radius_boundary():
+    """A point at exactly float32(r) is out (strict <), one ulp inside is
+    in; a centre with no hit gets 0 in every slot."""
+    r = 0.2
+    rf = np.float32(r)
+    inside = np.nextafter(rf, np.float32(0))
+    pts = np.zeros((1, 8, 3), np.float32)
+    pts[0, :, 0] = [5.0, rf, inside, -rf, 5.0, -inside, 5.0, 5.0]
+    centers = np.zeros((1, 2, 3), np.float32)
+    centers[0, 1] = [100.0, 0.0, 0.0]              # no neighbour at all
+    got = ops.ball_query(_t(centers), _t(pts), r, 4).numpy()
+    want = np.asarray(jops.ball_query(jnp.asarray(centers), jnp.asarray(pts),
+                                      r, 4, use_pallas=False))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[0, 0], [2, 5, 2, 2])
+    np.testing.assert_array_equal(got[0, 1], [0, 0, 0, 0])
+
+
+# ------------------------------------------------------------ three-NN
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_three_nn(case):
+    if case == "random":
+        pts, ctr = _cloud(2, 2, 128), _cloud(3, 2, 32)
+    else:
+        pts = _lattice(2, 64) + 0.5
+        ctr = np.concatenate([_lattice(2, 32)] * 2, axis=1)  # duplicates
+    idx, w = ops.three_nn(_t(pts), _t(ctr))
+    jidx, jw = jops.three_nn(jnp.asarray(pts), jnp.asarray(ctr),
+                             use_pallas=False)
+    pidx, pw = three_nn_pallas(jnp.asarray(pts), jnp.asarray(ctr), True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(pidx))
+    _close(w.numpy(), jw, F32_RTOL)
+    _close(w.numpy(), pw, F32_RTOL)
+
+
+def test_three_nn_interpolate():
+    pts, ctr = _cloud(4, 2, 128), _cloud(5, 2, 32)
+    f = np.random.default_rng(6).standard_normal((2, 32, 12)).astype(
+        np.float32)
+    got = ops.three_nn_interpolate(_t(pts), _t(ctr), _t(f))
+    want = jops.three_nn_interpolate(jnp.asarray(pts), jnp.asarray(ctr),
+                                     jnp.asarray(f))
+    _close(got.numpy(), want, F32_RTOL)
+
+
+# ---------------------------------------------------------- voxelize
+
+def _vox_inputs(seed, r, c):
+    x = _cloud(seed, 2, 256)
+    f = np.random.default_rng(seed + 1).standard_normal((2, 256, c)).astype(
+        np.float32)
+    return x, f, ops.make_voxel_context(_t(x), r), \
+        jops.make_voxel_context(jnp.asarray(x), r)
+
+
+def test_voxel_context_matches():
+    x, _, ctx, jctx = _vox_inputs(7, 8, 4)
+    np.testing.assert_array_equal(ctx.ids.numpy(), np.asarray(jctx.ids))
+    np.testing.assert_array_equal(ctx.order.numpy(), np.asarray(jctx.order))
+    _close(ctx.norm_coords.numpy(), jctx.norm_coords, F32_RTOL)
+    counts = np.diff(ctx.voxel_lo.numpy(), axis=1)
+    per_point = np.take_along_axis(counts, ctx.ids_sorted.numpy(), axis=1)
+    np.testing.assert_array_equal(per_point,
+                                  np.asarray(run_counts_sorted(jctx)))
+
+
+@pytest.mark.parametrize("c", [3, 40])
+def test_scatter_mean(c):
+    r = 4
+    _, f, ctx, jctx = _vox_inputs(8, r, c)
+    got = ops.avg_voxelize(_t(f), ctx, r).numpy()
+    want = np.asarray(jops.avg_voxelize_ctx(jnp.asarray(f), jctx, r))
+    _close(got, want, F32_RTOL)
+    # the Pallas kernel takes the pre-divided contributions in sorted order
+    fs = jnp.take_along_axis(jnp.asarray(f), jctx.order[..., None], axis=1)
+    fm = fs / run_counts_sorted(jctx)[..., None]
+    gp = scatter_sum_sorted_padded_pallas(fm, jctx.ids_sorted, jctx.tile_lo,
+                                          r, jnp.float32)
+    pallas = np.asarray(gp)[:, 1:r + 1].reshape(got.shape)
+    _close(got, pallas, BF16_TOL)
+    # bf16 output: one rounding of the f32 sum
+    bf = ops.avg_voxelize(_t(f), ctx, r, torch.bfloat16)
+    np.testing.assert_array_equal(bf.float().numpy(),
+                                  _t(got).to(torch.bfloat16).float().numpy())
+
+
+def test_trilinear_devoxelize():
+    r = 4
+    x, _, ctx, jctx = _vox_inputs(9, r, 5)
+    grid = np.random.default_rng(10).standard_normal(
+        (2, r, r, r, 6)).astype(np.float32)
+    nc = ctx.norm_coords.numpy().copy()
+    nc[:, :8] = np.round(nc[:, :8])          # frac == 0: lower corner only
+    nc[:, 8:10] = r - 1                      # the clamped upper face
+    got = ops.trilinear_devoxelize(_t(grid), _t(nc)).numpy()
+    want = np.asarray(jops.trilinear_devoxelize(jnp.asarray(grid),
+                                                jnp.asarray(nc)))
+    _close(got, want, F32_RTOL)
+
+
+# ---------------------------------------------------------------- conv
+
+@pytest.mark.parametrize("cin,cout", [(6, 8), (40, 16)])
+def test_conv3d(cin, cout):
+    r, b = 4, 2
+    rng = np.random.default_rng(cin)
+    g = rng.standard_normal((b, r, r, r, cin)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 3, cin, cout)) / np.sqrt(27 * cin)
+         ).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    w_torch = np.transpose(k, (4, 3, 0, 1, 2))        # (Cout, Cin, 3, 3, 3)
+    got = ops.voxel_conv3d(_t(g), _t(w_torch), _t(bias)).numpy()
+    dn = jax.lax.conv_dimension_numbers(g.shape, k.shape,
+                                        ("NDHWC", "DHWIO", "NDHWC"))
+    want = jax.lax.conv_general_dilated(
+        jnp.asarray(g), jnp.asarray(k), (1, 1, 1), "SAME",
+        dimension_numbers=dn, precision=jax.lax.Precision.HIGHEST) + bias
+    _close(got, want, F32_RTOL)
+    gp = jnp.pad(jnp.asarray(g).reshape(b, r, r * r, cin).astype(
+        jnp.bfloat16), ((0, 0), (1, 1), (0, 0), (0, 0)))
+    for fn in (conv3d_ms_pallas, conv3d_mm_pallas):
+        kw = dict(prepadded=True, interpret=True)
+        out = fn(gp, jnp.asarray(k), jnp.asarray(bias), r, **kw)
+        _close(got, np.asarray(out.astype(jnp.float32)), BF16_TOL)
+
+
+# ----------------------------------------------------------- attention
+
+def test_attention():
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((2, 64, 16)).astype(np.float32) * 0.5
+               for _ in range(3))
+    got = k_attn.attention(_t(q), _t(k), _t(v)).numpy()
+    logits = jnp.einsum("bic,bjc->bij", q, k,
+                        precision=jax.lax.Precision.HIGHEST)
+    want = jnp.einsum("bij,bjc->bic", jax.nn.softmax(logits, axis=-1), v,
+                      precision=jax.lax.Precision.HIGHEST)
+    _close(got, want, F32_RTOL)
+    bf = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    pallas = _attention_pallas_fwd_only(*bf, interpret=True)
+    _close(got, np.asarray(pallas.astype(jnp.float32)), BF16_TOL)
+    # the layer's small-site path and the kernel's plain version agree
+    _close(ops.attention(_t(q), _t(k), _t(v)).numpy(), got, F32_RTOL)
+
+
+# ------------------------------------------------------------ dispatch
+
+def test_cpu_tensors_take_the_plain_versions():
+    kernels.reset_counts()
+    x = _t(_cloud(12, 1, 64))
+    ops.furthest_point_sample(x, 8)
+    ops.ball_query(x[:, :8], x, 0.5, 4)
+    ops.three_nn(x, x[:, :8])
+    ctx = ops.make_voxel_context(x, 4)
+    g = ops.avg_voxelize(x, ctx, 4)
+    ops.voxel_conv3d(g, torch.zeros(4, 3, 3, 3, 3), torch.zeros(4))
+    k_attn.attention(x, x, x)
+    assert all(c == (0, 0) for c in kernels.counts().values()), \
+        kernels.counts()
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: k_fps.furthest_point_sample(t, 4),
+    lambda t: k_bq.ball_query(t, t, 0.5, 4),
+    lambda t: k_tnn.three_nn(t, t),
+    lambda t: k_attn.attention(t, t, t),
+    lambda t: k_vox.scatter_mean(
+        t, *(t.new_zeros(s, dtype=torch.int32)
+             for s in ((1, 16), (1, 16), (1, 9))), 2),
+    lambda t: k_conv.conv3d(t.new_zeros((1, 4, 4, 4, 3)),
+                            t.new_zeros((4, 3, 3, 3, 3)), t.new_zeros(4)),
+], ids=["fps", "ball_query", "three_nn", "attention", "scatter_mean",
+        "conv3d"])
+def test_non_cpu_tensor_never_falls_back(call):
+    """A tensor off the CPU launches the kernel or raises; here (no CUDA
+    device) a meta tensor must raise, not run the plain version."""
+    kernels.reset_counts()
+    with pytest.raises((ValueError, TypeError, RuntimeError)):
+        call(torch.zeros((1, 16, 3), device="meta"))
+    assert all(c[1] == 0 for c in kernels.counts().values())
+
+
+def test_package_imports_without_jax():
+    code = ("import sys, bdm_tpu_torch, bdm_tpu_torch.ops, "
+            "bdm_tpu_torch.models, bdm_tpu_torch.samplers, "
+            "bdm_tpu_torch.utils.convert_jax; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], check=True)
