@@ -19,7 +19,10 @@ import torch
 f32 = np.float32
 
 
-class DDPMScheduler:
+class AlphaTable:
+    """What the DDPM and DDIM schedulers share: the cumulative alphas and
+    the descending inference timesteps."""
+
     def __init__(self, betas: np.ndarray):
         betas = np.asarray(betas, dtype=np.float64)
         self.num_train_timesteps = len(betas)
@@ -37,12 +40,18 @@ class DDPMScheduler:
     def step_ratio(self) -> int:
         return self.num_train_timesteps // self._num_inference_steps
 
+    def alphas_at(self, t: int):
+        """(acp_t, acp_prev) as float32 scalars; acp_prev is 1 past the
+        last step."""
+        prev_t = int(t) - self.step_ratio
+        return (self.alphas_cumprod[int(t)],
+                self.alphas_cumprod[prev_t] if prev_t >= 0 else f32(1.0))
+
+
+class DDPMScheduler(AlphaTable):
     def coefficients(self, t: int):
         """(sqrt(1-acp_t), sqrt(acp_t), coef_x0, coef_xt, noise scale)."""
-        t = int(t)
-        prev_t = t - self.step_ratio
-        acp_t = self.alphas_cumprod[t]
-        acp_prev = self.alphas_cumprod[prev_t] if prev_t >= 0 else f32(1.0)
+        acp_t, acp_prev = self.alphas_at(t)
         beta_prod_t = f32(1.0) - acp_t
         beta_prod_prev = f32(1.0) - acp_prev
         current_alpha = acp_t / acp_prev
@@ -50,7 +59,7 @@ class DDPMScheduler:
         coef_x0 = np.sqrt(acp_prev) * current_beta / beta_prod_t
         coef_xt = np.sqrt(current_alpha) * beta_prod_prev / beta_prod_t
         var = max(beta_prod_prev / beta_prod_t * current_beta, f32(1e-20))
-        sigma = f32(float(t > 0)) * np.sqrt(f32(var))
+        sigma = f32(float(int(t) > 0)) * np.sqrt(f32(var))
         return (float(np.sqrt(beta_prod_t)), float(np.sqrt(acp_t)),
                 float(coef_x0), float(coef_xt), float(sigma))
 

@@ -213,30 +213,36 @@ class PointNetFP(nn.Module):
         return self.mlp(torch.cat(parts, dim=-1)).to(dt)
 
 
-class PVCNN2(nn.Module):
-    """The noise-prediction backbone (`pvcnn.py:10-150`):
-    forward(inputs (B, N, 3 + S), t (B,)) -> (B, N, out_channels) float32.
-    Coordinates are the first 3 input channels."""
+def _stage_parts(layer):
+    """A stage is a Sequential of its PVConvs around the SA or FP module
+    (the reference's layout), or the bare module when it has no conv."""
+    return list(layer) if isinstance(layer, nn.Sequential) else [layer]
 
-    def __init__(self, out_channels: int = 3, embed_dim: int = 64,
-                 extra_feature_channels: int = 3, use_att: bool = True,
-                 sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
-                 classifier_init_scale: Optional[float] = 1e-6,
+
+def _voxel_convs(convs, features, coords):
+    """Run a stage's PVConvs over one shared voxel context."""
+    if convs:
+        ctx = ops.make_voxel_context(coords, convs[0].resolution)
+        for conv in convs:
+            features = conv(features, ctx)
+    return features
+
+
+class PVCNNEncoder:
+    """The SA tower and the global attention
+    (`bdm_tpu/models/pvcnn.py::PVCNNEncoder`).
+
+    Not an `nn.Module`: the network that owns a tower registers
+    `sa_layers` and `global_att` under the names its checkpoint uses
+    (`sa_layers` in PVCNN2, `pc2_model_sa_layers` in the fusion net); this
+    object builds the modules and runs them."""
+
+    def __init__(self, specs: PVCNN2Specs, embed_dim: int, use_att: bool,
                  dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.embed_dim = embed_dim
-        self.use_att = use_att
-        self.classifier_init_scale = classifier_init_scale
         self.dtype = dtype
-        specs = build_pvcnn2_specs(sa_blocks, fp_blocks,
-                                   extra_feature_channels, use_att)
-        self.specs = specs
-        self.embedf = timestep_mlp(embed_dim)
-
         sa_layers = []
         for i, stage in enumerate(specs.sa_stages):
-            cin = (extra_feature_channels + 3 if i == 0
-                   else specs.sa_in_channels[i] + embed_dim)
+            cin = specs.sa_in_channels[i] + (3 if i == 0 else embed_dim)
             convs = []
             for cs in stage.convs:
                 convs.append(PVConv(cin, cs.out_channels, cs.resolution,
@@ -245,10 +251,40 @@ class PVCNN2(nn.Module):
             sa = PointNetSA(stage.sa, cin, dtype)
             sa_layers.append(nn.Sequential(*convs, sa) if convs else sa)
         self.sa_layers = nn.ModuleList(sa_layers)
-        ch = specs.channels_sa_features
-        if use_att:
-            self.global_att = Attention(ch, 8, kdims=1, dtype=dtype)
+        self.global_att = (Attention(specs.channels_sa_features, 8, kdims=1,
+                                     dtype=dtype) if use_att else None)
 
+    def __call__(self, features: torch.Tensor, coords: torch.Tensor,
+                 temb: torch.Tensor):
+        """features (B, N, C0), coords (B, N, 3) float32, temb (B, E) ->
+        (bottleneck features, its coords, temb, the coords and the input
+        features of every stage)."""
+        dt = self.dtype or torch.float32
+        coords_list, skips = [], []
+        for i, layer in enumerate(self.sa_layers):
+            skips.append(features)
+            coords_list.append(coords)
+            if i == 0:
+                f = features
+            else:
+                n = features.shape[1]
+                f = torch.cat([features.to(dt),
+                               temb[:, None, :].to(dt).expand(-1, n, -1)], -1)
+            *convs, sa = _stage_parts(layer)
+            features, coords = sa(_voxel_convs(convs, f, coords), coords)
+        if self.global_att is not None:
+            features = self.global_att(features).to(dt)
+        return features, coords, temb, coords_list, skips
+
+
+class PVCNNDecoder:
+    """The FP tower and the classifier head
+    (`bdm_tpu/models/pvcnn.py::PVCNNDecoder`); like `PVCNNEncoder`, its
+    owner registers `fp_layers` and `classifier`."""
+
+    def __init__(self, specs: PVCNN2Specs, embed_dim: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        ch = specs.channels_sa_features
         fp_layers = []
         for k, stage in enumerate(specs.fp_stages):
             fp = PointNetFP(ch + embed_dim + specs.sa_in_channels[-1 - k],
@@ -265,22 +301,68 @@ class PVCNN2(nn.Module):
             SharedMLP(ch, (128,), kdims=1, dtype=dtype), nn.Dropout(),
             Conv1x1(128, out_channels, 1))
 
+    def __call__(self, features: torch.Tensor, coords: torch.Tensor,
+                 temb: torch.Tensor, coords_list, skips) -> torch.Tensor:
+        """The encoder's outputs (skips[0] replaced by the caller with the
+        input's extra channels) -> (B, N, out_channels) float32."""
+        for k, layer in enumerate(self.fp_layers):
+            fp, *convs = _stage_parts(layer)
+            fine = coords_list[-1 - k]
+            features = fp(fine, coords, features, skips[-1 - k], temb)
+            coords = fine
+            features = _voxel_convs(convs, features, coords)
+        f = self.classifier[0](features).float()
+        return self.classifier[2](f, torch.float32)
+
+
+@torch.no_grad()
+def init_uniform(module: nn.Module, gen: torch.Generator) -> None:
+    """Seeded stand-in weights: fan-in uniform matrices, zero biases, unit
+    norm scales."""
+    for p in module.parameters():
+        if p.ndim >= 2:
+            bound = 1.0 / np.sqrt(int(np.prod(p.shape[1:])))
+            p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
+        else:
+            p.zero_()
+    for m in module.modules():
+        if isinstance(m, GroupNormCL):
+            m.weight.fill_(1.0)
+
+
+class PVCNN2(nn.Module):
+    """The noise-prediction backbone (`pvcnn.py:10-150`):
+    forward(inputs (B, N, 3 + S), t (B,)) -> (B, N, out_channels) float32.
+    Coordinates are the first 3 input channels."""
+
+    def __init__(self, out_channels: int = 3, embed_dim: int = 64,
+                 extra_feature_channels: int = 3, use_att: bool = True,
+                 sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
+                 classifier_init_scale: Optional[float] = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.classifier_init_scale = classifier_init_scale
+        self.dtype = dtype
+        self.specs = build_pvcnn2_specs(sa_blocks, fp_blocks,
+                                        extra_feature_channels, use_att)
+        self.embedf = timestep_mlp(embed_dim)
+        self.encoder = PVCNNEncoder(self.specs, embed_dim, use_att, dtype)
+        self.sa_layers = self.encoder.sa_layers
+        if use_att:
+            self.global_att = self.encoder.global_att
+        self.decoder = PVCNNDecoder(self.specs, embed_dim, out_channels,
+                                    dtype)
+        self.fp_layers = self.decoder.fp_layers
+        self.classifier = self.decoder.classifier
+
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        """Random weights from `seed`: fan-in uniform weights, zero biases,
-        unit norms; the classifier head N(0, scale^2) when
-        `classifier_init_scale` is set (PC2's 1e-6 re-init,
-        `point_cloud_model.py:38-39`)."""
+        """Random weights from `seed` (`init_uniform`); the classifier
+        head N(0, scale^2) when `classifier_init_scale` is set (PC2's 1e-6
+        re-init, `point_cloud_model.py:38-39`)."""
         g = torch.Generator().manual_seed(seed)
-        for p in self.parameters():
-            if p.ndim >= 2:
-                bound = 1.0 / np.sqrt(int(np.prod(p.shape[1:])))
-                p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * bound)
-            else:
-                p.zero_()
-        for m in self.modules():
-            if isinstance(m, GroupNormCL):
-                m.weight.fill_(1.0)
+        init_uniform(self, g)
         if self.classifier_init_scale is not None:
             head = self.classifier[2]
             for p in (head.weight, head.bias):
@@ -288,41 +370,10 @@ class PVCNN2(nn.Module):
                         * self.classifier_init_scale)
 
     def forward(self, inputs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or torch.float32
         temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
         coords = inputs[..., :3].float()
         features = inputs if self.dtype is None else inputs.to(self.dtype)
-
-        coords_list, skips = [], []
-        for i, layer in enumerate(self.sa_layers):
-            skips.append(features)
-            coords_list.append(coords)
-            if i == 0:
-                f = features
-            else:
-                n = features.shape[1]
-                f = torch.cat([features.to(dt),
-                               temb[:, None, :].to(dt).expand(-1, n, -1)], -1)
-            convs, sa = (list(layer)[:-1], layer[-1]) \
-                if isinstance(layer, nn.Sequential) else ([], layer)
-            if convs:
-                ctx = ops.make_voxel_context(coords, convs[0].resolution)
-                for conv in convs:
-                    f = conv(f, ctx)
-            features, coords = sa(f, coords)
-        if self.use_att:
-            features = self.global_att(features).to(dt)
+        feats, ccoords, temb, coords_list, skips = self.encoder(
+            features, coords, temb)
         skips[0] = inputs[..., 3:]
-
-        for k, layer in enumerate(self.fp_layers):
-            fine = coords_list[-1 - k]
-            features = layer[0](fine, coords, features, skips[-1 - k], temb)
-            coords = fine
-            convs = list(layer)[1:]
-            if convs:
-                ctx = ops.make_voxel_context(coords, convs[0].resolution)
-                for conv in convs:
-                    features = conv(features, ctx)
-
-        f = self.classifier[0](features).float()
-        return self.classifier[2](f, torch.float32)
+        return self.decoder(feats, ccoords, temb, coords_list, skips)

@@ -4,7 +4,7 @@
     features        : (B, N, C)
     voxel grids     : (B, R, R, R, C)
 
-The six TPU kernels of the main path run as hand-written CUDA kernels
+The TPU kernels of the ported paths run as hand-written CUDA kernels
 (`bdm_tpu_torch/ops/cuda/`, sources in `bdm_tpu_torch/csrc/`).
 """
 

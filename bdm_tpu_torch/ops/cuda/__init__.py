@@ -10,7 +10,7 @@ tensors (`plain_cuda_calls`), so a run can show which path it took.
 from __future__ import annotations
 
 from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, fps,
-                                    three_nn, voxelize)
+                                    interp, three_nn, voxelize)
 from bdm_tpu_torch.ops.cuda._lib import build
 
 # name -> (wrapper module, source, TPU kernel it replaces)
@@ -21,6 +21,8 @@ KERNELS = {
                    "bdm_tpu/ops/pallas/ball_query.py:67"),
     "three_nn": (three_nn, "bdm_tpu_torch/csrc/three_nn.cu",
                  "bdm_tpu/ops/pallas/three_nn.py:60"),
+    "interp_mm": (interp, "bdm_tpu_torch/csrc/interp.cu",
+                  "bdm_tpu/ops/pallas/interp_mm.py:49"),
     "scatter_mean": (voxelize, "bdm_tpu_torch/csrc/voxelize.cu",
                      "bdm_tpu/ops/pallas/voxelize.py:201"),
     "conv3d": (conv3d, "bdm_tpu_torch/csrc/conv3d.cu",

@@ -1,7 +1,8 @@
 """Build and load the Hopper kernels of `bdm_tpu_torch/csrc/`.
 
-The sources are compiled with `nvcc` for `sm_90a` into one shared library
-with a plain C interface, loaded with `ctypes`. The build runs at the first
+The sources are compiled with `nvcc` for `sm_90a`, one compiler process
+per source and all at once, and linked into one shared library with a
+plain C interface, loaded with `ctypes`. The build runs at the first
 launch (or an explicit `build()`), lands in `bdm_tpu_torch/_build/` (listed
 in `.gitignore`) and is keyed on a hash of the sources, so an edited kernel
 is rebuilt and an unchanged one is reused.
@@ -33,6 +34,7 @@ _SIGNATURES = {
     "bdm_fps": (_P, _P, _I, _I, _I, _P),
     "bdm_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "bdm_interp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bdm_scatter_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "bdm_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -65,29 +67,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbdm_kernels_{_source_hash()}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the nvcc commands side by side; raise with the compiler's output
+    if one failed, else return the joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+              for cmd, proc, out in zip(cmds, procs, outs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library for these sources exists."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # build into a temporary name, then rename: concurrent builds never
+    nvcc = _nvcc()
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I",
+             str(CSRC)]
+    if verbose:
+        flags.append("-Xptxas=-v")
+    # build under temporary names, then rename: concurrent builds never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = {src: os.path.join(tmp, src.stem + ".o")
+                for src in sorted(CSRC.glob("*.cu"))}
+        log = _run_all([[nvcc, *flags, "-c", str(src), "-o", obj]
+                        for src, obj in objs.items()])
+        lib = os.path.join(tmp, "lib.so")
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
+                          *objs.values()]])
+        if verbose:
+            print(log)
+        os.replace(lib, so)
     return so
 
 

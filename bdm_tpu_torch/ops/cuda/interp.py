@@ -1,0 +1,68 @@
+"""Three-neighbour blend of bf16 features: the `csrc/interp.cu` kernel and
+its plain version.
+
+Replaces `_interp_mm_fwd_pallas` / `interp_mm`
+(bdm_tpu/ops/pallas/interp_mm.py): out[n] = sum_k bf16(w_k[n]) *
+F[idx_k[n]], float32 accumulation in k order, one rounding to bf16. The
+TPU kernel's one-hot matrix sums the weights of equal indices before the
+rounding; `three_nn` returns three distinct indices for M >= 3, where the
+two forms agree up to the order of the float32 sum.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bdm_tpu_torch.ops.cuda import _lib
+
+launches = 0
+plain_cuda_calls = 0
+
+
+def _check_shapes(idx, w, feats) -> None:
+    if feats.dtype != torch.bfloat16:
+        raise TypeError(f"interp_mm: features must be bfloat16, got "
+                        f"{feats.dtype} (float32 takes the gather form)")
+    if (idx.dim() != 3 or idx.shape[-1] != 3 or w.shape != idx.shape
+            or feats.dim() != 3 or feats.shape[0] != idx.shape[0]
+            or feats.shape[1] < 1):
+        raise ValueError(f"interp_mm: idx {tuple(idx.shape)}, w "
+                         f"{tuple(w.shape)}, feats {tuple(feats.shape)}")
+
+
+def interp_mm_plain(idx: torch.Tensor, w: torch.Tensor,
+                    feats: torch.Tensor) -> torch.Tensor:
+    """idx (B, N, 3) int32, w (B, N, 3) float32, feats (B, M, C) bf16
+    -> (B, N, C) bf16."""
+    global plain_cuda_calls
+    _check_shapes(idx, w, feats)
+    if feats.is_cuda:
+        plain_cuda_calls += 1
+    b, n, _ = idx.shape
+    c = feats.shape[-1]
+    wb = w.to(torch.bfloat16).float()
+    g = torch.gather(feats, 1, idx.reshape(b, n * 3, 1).long()
+                     .expand(b, n * 3, c)).reshape(b, n, 3, c).float()
+    out = (g[:, :, 0] * wb[..., 0:1] + g[:, :, 1] * wb[..., 1:2]) \
+        + g[:, :, 2] * wb[..., 2:3]
+    return out.to(feats.dtype)
+
+
+def interp_mm(idx: torch.Tensor, w: torch.Tensor,
+              feats: torch.Tensor) -> torch.Tensor:
+    global launches
+    if feats.device.type == "cpu":
+        return interp_mm_plain(idx, w, feats)
+    _lib.check(idx, "idx", (torch.int32,), 3)
+    _lib.check(w, "w", (torch.float32,), 3)
+    _lib.check(feats, "feats", (torch.bfloat16,), 3)
+    _check_shapes(idx, w, feats)
+    b, n, _ = idx.shape
+    m, c = feats.shape[1:]
+    out = torch.empty((b, n, c), dtype=feats.dtype, device=feats.device)
+    if c % 8 == 0 and (feats.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError("interp_mm: features must be 16-byte aligned")
+    _lib.launch("bdm_interp", idx.data_ptr(), w.data_ptr(), feats.data_ptr(),
+                out.data_ptr(), b, n, m, c)
+    launches += 1
+    return out

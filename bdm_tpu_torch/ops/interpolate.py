@@ -1,10 +1,13 @@
 """Three-nearest-neighbour inverse-distance interpolation
-(`bdm_tpu/ops/interpolate.py`, the `BDM_INTERP=gather` form)."""
+(`bdm_tpu/ops/interpolate.py`)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from bdm_tpu_torch.ops.cuda import interp as _interp
 from bdm_tpu_torch.ops.cuda import three_nn as _tnn
 
 
@@ -15,12 +18,27 @@ def three_nn(points: torch.Tensor, centers: torch.Tensor):
 
 
 def three_nn_interpolate(points: torch.Tensor, centers: torch.Tensor,
-                         centers_features: torch.Tensor) -> torch.Tensor:
-    """(B, N, 3), (B, M, 3), (B, M, C) -> (B, N, C) float32:
-    sum_k w_k * F[idx_k], summed in k order."""
+                         centers_features: torch.Tensor,
+                         impl: Optional[str] = None) -> torch.Tensor:
+    """(B, N, 3), (B, M, 3), (B, M, C) -> (B, N, C): sum_k w_k * F[idx_k],
+    summed in k order.
+
+    `impl=None` follows the reference's rule on its accelerator: bf16
+    features with M >= 128 and N a multiple of min(N, 512) take the
+    "onehot" form (`ops.cuda.interp.interp_mm`: weights rounded to bf16,
+    bf16 result); everything else the "gather" form (float32 weights and
+    result). Naming a form forces it."""
+    if impl not in (None, "gather", "onehot"):
+        raise ValueError(f"three_nn_interpolate: impl {impl!r}")
     idx, w = three_nn(points, centers)
     b, n, _ = idx.shape
-    c = centers_features.shape[-1]
+    m, c = centers_features.shape[1:]
+    if impl is None:
+        onehot = (centers_features.dtype == torch.bfloat16 and m >= 128
+                  and n % min(n, 512) == 0)
+        impl = "onehot" if onehot else "gather"
+    if impl == "onehot":
+        return _interp.interp_mm(idx, w, centers_features.contiguous())
     g = torch.gather(centers_features, 1, idx.reshape(b, n * 3, 1).long()
                      .expand(b, n * 3, c)).reshape(b, n, 3, c).float()
     return (g[:, :, 0] * w[..., 0:1] + g[:, :, 1] * w[..., 1:2]) \

@@ -8,8 +8,10 @@ trajectory; each step projects it onto the current points, concatenates
 reference (`point_cloud_model.model.*`, `feature_model.model.*`).
 
 Supported here: the released PC2 configuration (local colours and
-features, no mask, no global features, `raster_splat="multi"`, DDPM,
-`precontract=False`).
+features, no mask, no global features, `raster_splat="multi"`, DDPM and
+DDIM windows, `precontract=False`).
+
+The model lives on the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 
+from bdm_tpu_torch import resolve_device
 from bdm_tpu_torch.conditioning import PerspectiveCamera, surface_projection
-from bdm_tpu_torch.diffusion import DDPMScheduler, linear_betas
+from bdm_tpu_torch.diffusion import (DDIMScheduler, DDPMScheduler,
+                                     linear_betas)
 from bdm_tpu_torch.models.feature_model import FeatureModel
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2)
@@ -64,10 +68,12 @@ class _Holder(nn.Module):
         self.model = model
 
 
-class PC2Model(nn.Module):
-    def __init__(self, cfg: ProjectionConfig = ProjectionConfig(),
-                 sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
-                 vit_kwargs: Optional[dict] = None):
+class ProjectionConditioned(nn.Module):
+    """What PC2 and the BDM-Merging model share: the image feature model,
+    the conditioning map, its projection onto the points and the two
+    schedulers."""
+
+    def __init__(self, cfg: ProjectionConfig, vit_kwargs: Optional[dict]):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype_of(cfg.mixed_precision)
@@ -76,24 +82,10 @@ class PC2Model(nn.Module):
                                           vit_kwargs)
         self.in_channels = (3 + cfg.image_color_channels
                             + self.feature_model.feature_dim)
-        self.point_cloud_model = _Holder(PVCNN2(
-            out_channels=3, embed_dim=cfg.point_cloud_model_embed_dim,
-            extra_feature_channels=self.in_channels - 3,
-            sa_blocks=sa_blocks, fp_blocks=fp_blocks,
-            classifier_init_scale=1e-6, dtype=self.compute_dtype))
-        self.scheduler = DDPMScheduler(linear_betas(cfg.beta_start,
-                                                    cfg.beta_end))
+        betas = linear_betas(cfg.beta_start, cfg.beta_end)
+        self.schedulers = {"ddpm": DDPMScheduler(betas),
+                           "ddim": DDIMScheduler(betas)}
 
-    @property
-    def backbone(self) -> PVCNN2:
-        return self.point_cloud_model.model
-
-    def reset_parameters(self, seed: int = 0) -> None:
-        self.backbone.reset_parameters(seed)
-        if hasattr(self.feature_model, "model"):
-            self.feature_model.model.reset_parameters(seed + 1)
-
-    # ---------------------------------------------------------- conditioning
     @torch.inference_mode()
     def conditioning_map(self, image: torch.Tensor) -> torch.Tensor:
         """image (B, H, W, 3) in [0, 1] -> (B, H, W, 3 + D) float32."""
@@ -114,6 +106,29 @@ class PC2Model(nn.Module):
                                   scale_factor=self.cfg.scale_factor)
         return torch.cat([x_t, proj.float()], dim=-1)
 
+
+class PC2Model(ProjectionConditioned):
+    def __init__(self, cfg: ProjectionConfig = ProjectionConfig(),
+                 sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
+                 vit_kwargs: Optional[dict] = None, device=None):
+        device = resolve_device(device)
+        super().__init__(cfg, vit_kwargs)
+        self.point_cloud_model = _Holder(PVCNN2(
+            out_channels=3, embed_dim=cfg.point_cloud_model_embed_dim,
+            extra_feature_channels=self.in_channels - 3,
+            sa_blocks=sa_blocks, fp_blocks=fp_blocks,
+            classifier_init_scale=1e-6, dtype=self.compute_dtype))
+        self.to(device)
+
+    @property
+    def backbone(self) -> PVCNN2:
+        return self.point_cloud_model.model
+
+    def reset_parameters(self, seed: int = 0) -> None:
+        self.backbone.reset_parameters(seed)
+        if hasattr(self.feature_model, "model"):
+            self.feature_model.model.reset_parameters(seed + 1)
+
     @torch.inference_mode()
     def denoise(self, x_t: torch.Tensor, t: torch.Tensor,
                 camera: PerspectiveCamera, cond: torch.Tensor) -> torch.Tensor:
@@ -125,17 +140,18 @@ class PC2Model(nn.Module):
     def interaction_sample(self, x_t: torch.Tensor, camera: PerspectiveCamera,
                            cond: torch.Tensor, start_time: int,
                            end_time: int, num_inference_steps: int,
-                           noise: Callable[[int, int], torch.Tensor]
-                           ) -> torch.Tensor:
-        """DDPM window over timesteps[S - start : S - end] from x_t;
-        `noise(j, n_steps)` gives step j's noise."""
+                           noise: Callable[[int, int], torch.Tensor],
+                           scheduler: str = "ddpm") -> torch.Tensor:
+        """Window over timesteps[S - start : S - end] from x_t with the
+        "ddpm" or "ddim" scheduler; `noise(j, n_steps)` gives step j's
+        noise (DDIM runs at eta = 0 and ignores it)."""
         s = int(num_inference_steps)
-        window = self.scheduler.set_timesteps(s)[s - start_time:s - end_time]
+        sched = self.schedulers[scheduler]
+        window = sched.set_timesteps(s)[s - start_time:s - end_time]
         b = x_t.shape[0]
         for j, t in enumerate(window):
             tb = torch.full((b,), int(t), dtype=torch.long,
                             device=x_t.device)
             eps = self.denoise(x_t, tb, camera, cond)
-            x_t = self.scheduler.step(eps, int(t), x_t,
-                                      noise(j, len(window)))
+            x_t = sched.step(eps, int(t), x_t, noise(j, len(window)))
         return x_t

@@ -1,6 +1,7 @@
 """PVD, the unconditional point-cloud prior (`bdm_tpu/samplers/pvd.py`):
 a PVCNN2 with no extra feature channels driven by the 'fixedsmall'
-Gaussian diffusion, betas linear(1e-4, 0.02, 1000)."""
+Gaussian diffusion, betas linear(1e-4, 0.02, 1000). The model lives on
+the card unless the caller passes `device="cpu"`."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from bdm_tpu_torch import resolve_device
 from bdm_tpu_torch.diffusion import GaussianDiffusion, pvd_betas
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2)
@@ -21,7 +23,9 @@ class PVDModel(nn.Module):
     def __init__(self, embed_dim: int = 64, use_att: bool = True,
                  beta_start: float = 1e-4, beta_end: float = 2e-2,
                  num_timesteps: int = 1000, sa_blocks=PVCNN_SA_BLOCKS,
-                 fp_blocks=PVCNN_FP_BLOCKS, mixed_precision: str = "no"):
+                 fp_blocks=PVCNN_FP_BLOCKS, mixed_precision: str = "no",
+                 device=None):
+        device = resolve_device(device)
         super().__init__()
         self.model = PVCNN2(out_channels=3, embed_dim=embed_dim,
                             extra_feature_channels=0, use_att=use_att,
@@ -30,6 +34,7 @@ class PVDModel(nn.Module):
                             dtype=compute_dtype_of(mixed_precision))
         self.diffusion = GaussianDiffusion(
             pvd_betas(beta_start, beta_end, num_timesteps))
+        self.to(device)
 
     def reset_parameters(self, seed: int = 0) -> None:
         self.model.reset_parameters(seed)

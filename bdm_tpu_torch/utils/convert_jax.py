@@ -72,6 +72,36 @@ def _pvconv(out: Dict, prefix: str, p: Dict) -> None:
     _shared_mlp(out, f"{prefix}.point_features", p["point_features"])
 
 
+def _encoder(out: Dict, enc: Dict, specs: PVCNN2Specs, sa_key: str,
+             att_key: str) -> None:
+    """A JAX PVCNNEncoder tree -> `<sa_key>.*` and `<att_key>.*`."""
+    for i, stage in enumerate(specs.sa_stages):
+        base = f"{sa_key}.{i}"
+        for k in range(len(stage.convs)):
+            _pvconv(out, f"{base}.{k}", enc[f"sa{i}_conv{k}"])
+        sa = f"{base}.{len(stage.convs)}" if stage.convs else base
+        _shared_mlp(out, f"{sa}.mlps.0", enc[f"sa{i}_pool"]["mlp"])
+    if "global_att" in enc:
+        _attention(out, att_key, enc["global_att"])
+
+
+def _decoder(out: Dict, dec: Dict, specs: PVCNN2Specs, fp_key: str,
+             classifier_key: str) -> None:
+    """A JAX PVCNNDecoder tree -> `<fp_key>.*` and `<classifier_key>.*`."""
+    for i, stage in enumerate(specs.fp_stages):
+        base = f"{fp_key}.{i}"
+        _shared_mlp(out, f"{base}.0.mlp", dec[f"fp{i}_mlp"]["mlp"])
+        for k in range(len(stage.convs)):
+            _pvconv(out, f"{base}.{k + 1}", dec[f"fp{i}_conv{k}"])
+    _shared_mlp(out, f"{classifier_key}.0", dec["classifier_mlp"])
+    _dense(out, f"{classifier_key}.2", dec["classifier_out"])
+
+
+def _embedf(out: Dict, prefix: str, p: Dict) -> None:
+    _dense(out, f"{prefix}.0", p["fc1"])
+    _dense(out, f"{prefix}.2", p["fc2"])
+
+
 def pvcnn2_state_dict(params: Dict, specs: PVCNN2Specs,
                       prefix: str = "") -> Dict[str, np.ndarray]:
     """A JAX PVCNN2 tree ({'params': ...} or its inside) -> reference keys
@@ -79,24 +109,33 @@ def pvcnn2_state_dict(params: Dict, specs: PVCNN2Specs,
     p = params.get("params", params)
     pre = f"{prefix}." if prefix else ""
     out: Dict[str, np.ndarray] = {}
-    _dense(out, f"{pre}embedf.0", p["embedf"]["fc1"])
-    _dense(out, f"{pre}embedf.2", p["embedf"]["fc2"])
-    enc, dec = p["encoder"], p["decoder"]
-    for i, stage in enumerate(specs.sa_stages):
-        base = f"{pre}sa_layers.{i}"
-        for k in range(len(stage.convs)):
-            _pvconv(out, f"{base}.{k}", enc[f"sa{i}_conv{k}"])
-        sa = f"{base}.{len(stage.convs)}" if stage.convs else base
-        _shared_mlp(out, f"{sa}.mlps.0", enc[f"sa{i}_pool"]["mlp"])
-    if "global_att" in enc:
-        _attention(out, f"{pre}global_att", enc["global_att"])
-    for i, stage in enumerate(specs.fp_stages):
-        base = f"{pre}fp_layers.{i}"
-        _shared_mlp(out, f"{base}.0.mlp", dec[f"fp{i}_mlp"]["mlp"])
-        for k in range(len(stage.convs)):
-            _pvconv(out, f"{base}.{k + 1}", dec[f"fp{i}_conv{k}"])
-    _shared_mlp(out, f"{pre}classifier.0", dec["classifier_mlp"])
-    _dense(out, f"{pre}classifier.2", dec["classifier_out"])
+    _embedf(out, f"{pre}embedf", p["embedf"])
+    _encoder(out, p["encoder"], specs, f"{pre}sa_layers", f"{pre}global_att")
+    _decoder(out, p["decoder"], specs, f"{pre}fp_layers", f"{pre}classifier")
+    return out
+
+
+def fusion_state_dict(params: Dict, pc2_specs: PVCNN2Specs,
+                      pvd_specs: PVCNN2Specs,
+                      prefix: str = "fusion_model.model"
+                      ) -> Dict[str, np.ndarray]:
+    """A JAX PVCNNFuse tree -> the reference fusion checkpoint's keys, as
+    `bdm_tpu.utils.convert_torch.convert_fusion_checkpoint` reads them."""
+    p = params.get("params", params)
+    pre = f"{prefix}." if prefix else ""
+    out: Dict[str, np.ndarray] = {}
+    _embedf(out, f"{pre}embedf", p["embedf"])
+    _encoder(out, p["pc2_encoder"], pc2_specs, f"{pre}pc2_model_sa_layers",
+             f"{pre}pc2_model_global_att")
+    _encoder(out, p["pvd_encoder"], pvd_specs, f"{pre}pvd_model_sa_layers",
+             f"{pre}pvd_model_global_att")
+    _decoder(out, p["decoder"], pc2_specs, f"{pre}fusion_decoder_fp_layers",
+             f"{pre}classifier")
+    i = 0
+    while f"proj{i}" in p:
+        for name, slot in (("conv1", 0), ("conv2", 2), ("zero_conv", 3)):
+            _dense(out, f"{pre}projs.{i}.{slot}", p[f"proj{i}"][name])
+        i += 1
     return out
 
 

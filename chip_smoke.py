@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of bdm_tpu_torch on one NVIDIA GPU: build the Hopper kernels,
-check each against its plain PyTorch version, then run the port's main
-path, BDM-Blending sampling, at full model width.
+check each against its plain PyTorch version, then run the port's two
+sampling paths, BDM-Blending and BDM-Merging, at full model width.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  a. every kernel against its plain version at the main path's shapes,
-     float32 and bfloat16; indices exact, floats under a stated tolerance;
-     median times of kernel and plain version (CUDA events, after warm-up);
-  d. a tiny BDM-Blending run through the kernels against the same run on
-     the CPU through the plain versions, same weights and noise;
-  b. one PC2 denoise step at B=8, N=4096, bf16, production widths;
+  a. every kernel against its plain version at the paths' shapes, float32
+     and bfloat16; indices exact, floats under a stated tolerance; median
+     times of kernel, plain version and, where one PyTorch call computes
+     the same function, that call (CUDA events, after warm-up); the least
+     time the card could take for the same work (`bound_ms`);
+  d. tiny BDM-Blending and BDM-Merging runs through the kernels against
+     the same runs on the CPU through the plain versions, same weights
+     (the fusion zero-convs non-zero) and noise;
+  b. one PC2 denoise step and one fusion forward at B=8, N=4096, bf16,
+     production widths, with the kernel launches of each;
   c. BDM-Blending end to end at production widths (PC2 with ViT-S/16 +
      PVD), B=2, N=4096, bf16, 50 DDPM steps with three interior
-     milestones; every kernel must have launched and no plain version may
-     have run on the card.
+     milestones;
+  e. BDM-Merging end to end at production widths (PC2 + PVD + the fusion
+     network initialised from them, zero-convs non-zero), B=2, N=4096,
+     bf16, 50 DDPM steps, five interior milestones with roll step 2, so
+     each runs a one-step roll of both branches and a fusion step.
+In c and e every kernel must have launched and no plain version may have
+run on the card.
 
 Weights are random from a seed (the released checkpoints are not in the
 repository); throughput does not depend on them. The last line of standard
@@ -47,31 +56,61 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median device time of fn() over `reps` runs (CUDA events)."""
+def timed_ms(fn, reps: int = 5, warmup: int = 2, inner: int = 1) -> float:
+    """Median device time of one fn() over `reps` runs (CUDA events).
+
+    A call of a few microseconds is shorter than the host takes to issue
+    it, so events around it would time the host. With `inner` > 1 the card
+    is first kept busy by a large matmul while the host queues `inner`
+    calls behind it; the events then bracket the calls running back to
+    back on the card."""
     import torch
     for _ in range(warmup):
         fn()
+    busy = (torch.empty(8192, 8192, device="cuda").normal_()
+            if inner > 1 else None)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if busy is not None:
+            busy @ busy
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(tensors, flops: float, kind: str) -> dict:
+    """The least time the card could take: the bytes of `tensors` (each
+    input read once, each output written once) over the memory rate, or
+    `flops` over the peak rate of `kind`, whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 # ------------------------------------------------------------ phase a
 
 def check_kernels(dev):
-    """-> {name: {"max_abs_err", "ms", "plain_ms"}} at production shapes."""
+    """-> {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    "library_ms"}} at production shapes, B=8. Operation counts: 8 flops a
+    squared distance plus the compares of the scan; 2 a multiply-add."""
     import torch
+    import torch.nn.functional as F
     from bdm_tpu_torch import ops
     from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, fps,
-                                        three_nn, voxelize)
+                                        interp, three_nn, voxelize)
 
     g = torch.Generator().manual_seed(SEED)
 
@@ -97,35 +136,83 @@ def check_kernels(dev):
         if not torch.equal(idx, fps.furthest_point_sample_plain(pts[n], m)):
             fail(f"fps differs at N={n}, M={m}")
         pts[m] = ops.gather(pts[n], idx).contiguous()
+    c0, p0 = pts[1024], pts[4096]
     res["fps"] = dict(
         max_abs_err=0.0,
-        ms=timed_ms(lambda: fps.furthest_point_sample(pts[4096], 1024)),
+        ms=timed_ms(lambda: fps.furthest_point_sample(p0, 1024)),
         plain_ms=timed_ms(
-            lambda: fps.furthest_point_sample_plain(pts[4096], 1024), 3, 1))
+            lambda: fps.furthest_point_sample_plain(p0, 1024), 3, 1),
+        library_ms=None,
+        # each of M - 1 rounds: N distances, a min and an argmax compare
+        **bound([p0, idx.new_empty((b, 1024))], b * 1023 * 4096 * 10, "f32"))
 
     for n, m, r in levels:
         a = ball_query.ball_query(pts[m], pts[n], r, 32)
         if not torch.equal(a, ball_query.ball_query_plain(pts[m], pts[n], r,
                                                           32)):
             fail(f"ball_query differs at N={n}, M={m}, r={r}")
-    c0, p0 = pts[1024], pts[4096]
+    # the scan of a centre may stop at its 32nd hit: count the pairs this
+    # data needs, not all M * N
+    hits = (fps.sqdist(c0[:, :, None, :], p0[:, None, :, :])
+            < torch.tensor(0.1, device=dev) ** 2).cumsum(-1)
+    scanned = torch.where(hits[..., -1] >= 32,
+                          (hits < 32).sum(-1) + 1, 4096).sum().item()
     res["ball_query"] = dict(
         max_abs_err=0.0,
         ms=timed_ms(lambda: ball_query.ball_query(c0, p0, 0.1, 32)),
         plain_ms=timed_ms(lambda: ball_query.ball_query_plain(c0, p0, 0.1,
-                                                              32)))
+                                                              32)),
+        library_ms=None,
+        **bound([c0, p0, a.new_empty((b, 1024, 32))], scanned * 9, "f32"))
 
     err = 0.0
+    nn = {}
     for n, m, _ in levels:
         i, w = three_nn.three_nn(pts[n], pts[m])
         pi, pw = three_nn.three_nn_plain(pts[n], pts[m])
         if not torch.equal(i, pi):
             fail(f"three_nn indices differ at N={n}, M={m}")
         err = max(err, rel_err(w, pw, 1e-6, f"three_nn weights N={n}"))
+        nn[n] = (i, w)
     res["three_nn"] = dict(
         max_abs_err=err,
         ms=timed_ms(lambda: three_nn.three_nn(p0, c0)),
-        plain_ms=timed_ms(lambda: three_nn.three_nn_plain(p0, c0)))
+        plain_ms=timed_ms(lambda: three_nn.three_nn_plain(p0, c0)),
+        library_ms=None,
+        # a distance and one compare against the third-best a pair (an
+        # insertion is rare)
+        **bound([p0, c0, *nn[4096]], b * 4096 * 1024 * 9, "f32"))
+
+    # the bf16 blend at the two FP stages that take it: (N, M, C); one
+    # bf16 ulp (2^-8) of the largest output
+    err = 0.0
+    by_shape = {}
+    for n, m, c in ((1024, 256, 256), (4096, 1024, 128)):
+        i, w = nn[n]
+        f = randn(b, m, c, dtype=torch.bfloat16)
+        out = interp.interp_mm(i, w, f)
+        err = max(err, rel_err(out, interp.interp_mm_plain(i, w, f), 2 ** -8,
+                               f"interp_mm N={n} M={m} C={c}"))
+        by_shape[f"N{n}_M{m}_C{c}"] = timed_ms(
+            lambda: interp.interp_mm(i, w, f), inner=20)
+    # one PyTorch call for the same blend: a weighted embedding bag over
+    # the flattened (B*M, C) table
+    flat = (i.long() + torch.arange(b, device=dev)[:, None, None] * m
+            ).reshape(-1, 3)
+    wb = w.to(torch.bfloat16).reshape(-1, 3)
+    table = f.reshape(b * m, c)
+    lib = F.embedding_bag(flat, table, per_sample_weights=wb, mode="sum")
+    rel_err(lib.reshape(out.shape), out, 2 ** -7, "embedding_bag yardstick")
+    res["interp_mm"] = dict(
+        max_abs_err=err,
+        ms=by_shape["N4096_M1024_C128"], ms_by_shape=by_shape,
+        # unlike the other rows: inputs and the recycled output stay in L2
+        timing="20 launches back to back behind a matmul, warm L2",
+        plain_ms=timed_ms(lambda: interp.interp_mm_plain(i, w, f)),
+        library_ms=timed_ms(lambda: F.embedding_bag(
+            flat, table, per_sample_weights=wb, mode="sum"), inner=20),
+        # three multiply-adds a channel, not the one-hot product's 2*M
+        **bound([i, w, f, out], b * n * c * 6, "f32"))
 
     # voxel sites of PC2 + PVD: (C, R, N); 390 = PC2 stage-0 input
     sites = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096), (96, 16, 1024),
@@ -145,9 +232,23 @@ def check_kernels(dev):
     ctx0 = ctxs[(32, 4096)]
     vargs = (f0, ctx0.order, ctx0.ids_sorted, ctx0.voxel_lo, 32,
              torch.bfloat16)
+    grid0 = voxelize.scatter_mean(*vargs)
+    # one PyTorch call: `index_add_` of the sorted, pre-divided rows into
+    # a zeroed float32 grid
+    cnt = torch.gather(ctx0.voxel_lo[:, 1:] - ctx0.voxel_lo[:, :-1], 1,
+                       ctx0.ids_sorted.long()).float()
+    rows = (torch.gather(f0, 1, ctx0.order.long()[..., None].expand_as(f0))
+            .float() / cnt[..., None]).reshape(-1, 390)
+    dst = (ctx0.ids_sorted.long()
+           + torch.arange(b, device=dev)[:, None] * 32 ** 3).reshape(-1)
+    acc = torch.empty((b * 32 ** 3, 390), device=dev)
     res["scatter_mean"] = dict(
         max_abs_err=err, ms=timed_ms(lambda: voxelize.scatter_mean(*vargs)),
-        plain_ms=timed_ms(lambda: voxelize.scatter_mean_plain(*vargs)))
+        plain_ms=timed_ms(lambda: voxelize.scatter_mean_plain(*vargs)),
+        library_ms=timed_ms(lambda: acc.zero_().index_add_(0, dst, rows)),
+        # a divide and an add a feature
+        **bound([f0, ctx0.order, ctx0.voxel_lo, grid0], b * 4096 * 390 * 2,
+                "f32"))
 
     # convs of PC2 + PVD: (Cin, Cout, R)
     convs = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (96, 64, 16),
@@ -162,12 +263,31 @@ def check_kernels(dev):
             err = max(err, rel_err(conv3d.conv3d(x, wt, bias),
                                    conv3d.conv3d_plain(x, wt, bias), tol,
                                    f"conv3d {cin}->{cout} R={r} {dt}"))
-    x0 = randn(b, 32, 32, 32, 390, dtype=torch.bfloat16)
-    w0 = randn(32, 390, 3, 3, 3, scale=(27 * 390) ** -0.5)
-    bias0 = randn(32, scale=0.1)
-    res["conv3d"] = dict(
-        max_abs_err=err, ms=timed_ms(lambda: conv3d.conv3d(x0, w0, bias0)),
-        plain_ms=timed_ms(lambda: conv3d.conv3d_plain(x0, w0, bias0)))
+
+    def conv_times(cin, cout, r):
+        """Kernel, plain and one-call (cuDNN, bf16, channels-last) times
+        and the bound of one bf16 conv; the one call must agree."""
+        x = randn(b, r, r, r, cin, dtype=torch.bfloat16)
+        wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+        bias = randn(cout, scale=0.1)
+        y = conv3d.conv3d(x, wt, bias)
+        xl = x.permute(0, 4, 1, 2, 3)
+        wl = wt.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        bl = bias.to(torch.bfloat16)
+        rel_err(F.conv3d(xl, wl, bl, padding=1).permute(0, 2, 3, 4, 1), y,
+                2e-2, f"F.conv3d bf16 yardstick {cin}->{cout}")
+        return dict(
+            ms=timed_ms(lambda: conv3d.conv3d(x, wt, bias)),
+            plain_ms=timed_ms(lambda: conv3d.conv3d_plain(x, wt, bias)),
+            library_ms=timed_ms(lambda: F.conv3d(xl, wl, bl, padding=1)),
+            **bound([x, wt, bias, y], 2 * 27 * cin * cout * r ** 3 * b,
+                    "bf16"))
+
+    # timed at PC2's wide stage-0 conv (the TPU's conv3d_mm) and at the
+    # largest narrow one (conv3d_ms): the last FP stage's 64 -> 64, R 32
+    res["conv3d"] = dict(max_abs_err=err, **conv_times(390, 32, 32),
+                         narrow_64_64_r32=conv_times(64, 64, 32))
 
     err = 0.0
     qkv = {}
@@ -178,27 +298,33 @@ def check_kernels(dev):
                                attention.attention_plain(q, k, v), tol,
                                f"attention {dt}"))
     qb = qkv[torch.bfloat16]
+    ob = attention.attention(*qb)
+    # one PyTorch call: fused attention with the scale the layer uses (1)
+    qh = [t[:, None] for t in qb]
+    rel_err(F.scaled_dot_product_attention(*qh, scale=1.0)[:, 0], ob, 2e-2,
+            "scaled_dot_product_attention yardstick")
     res["attention"] = dict(
         max_abs_err=err, ms=timed_ms(lambda: attention.attention(*qb)),
-        plain_ms=timed_ms(lambda: attention.attention_plain(*qb)))
+        plain_ms=timed_ms(lambda: attention.attention_plain(*qb)),
+        library_ms=timed_ms(
+            lambda: F.scaled_dot_product_attention(*qh, scale=1.0)),
+        # q k^T and p v: two products of 2 * S * S * C
+        **bound([*qb, ob], 4 * 4096 ** 2 * 64 * b, "bf16"))
     for name, r in res.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"kernel {name}: max_abs_err {r['max_abs_err']:.3e}  "
-              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+              f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"library {lib}  bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+    print("conv3d 64->64 R=32 bf16:",
+          json.dumps(res["conv3d"]["narrow_64_64_r32"]))
+    print("interp_mm by shape, ms:",
+          json.dumps(res["interp_mm"]["ms_by_shape"]))
     return res
 
 
 # ------------------------------------------------------------ models
-
-def camera(b, dev):
-    """An R2N2-like view: focal 2.1875, the cloud 1.75 units ahead."""
-    import torch
-    from bdm_tpu_torch.conditioning import PerspectiveCamera
-    return PerspectiveCamera(
-        R=torch.eye(3).expand(b, 3, 3).contiguous(),
-        T=torch.tensor([0.0, 0.0, 1.75]).expand(b, 3).contiguous(),
-        focal_length=torch.full((b, 2), 2.1875),
-        principal_point=torch.zeros(b, 2)).to(dev)
-
 
 class _CpuNoise:
     """Draws on the CPU from one seed and moves to `device`, so a CPU and a
@@ -219,14 +345,19 @@ class _CpuNoise:
     def mask(self, i, shape):
         return self.inner.mask(i, shape).to(self.device)
 
+    def fuse(self, i, shape):
+        return self.inner.fuse(i, shape).to(self.device)
+
 
 def tiny_parity(dev):
-    """Phase d: tiny BDM-Blending on the card (kernels) vs on the CPU
-    (plain versions); 1e-3 absolute, as the CPU test holds the port to
-    the JAX reference."""
+    """Phase d: tiny BDM-Blending and BDM-Merging on the card (kernels) vs
+    on the CPU (plain versions); 1e-3 absolute, as the CPU tests hold the
+    port to the JAX reference."""
     import torch
-    from bdm_tpu_torch.samplers import (PC2Model, ProjectionConfig,
-                                        PVDModel, bdm_blending)
+    from bdm_tpu_torch.samplers import (BDMMergingModel, PC2Model,
+                                        ProjectionConfig, PVDModel,
+                                        bdm_blending, bdm_merging)
+    from bdm_tpu_torch.tools.standins import camera, live_zero_convs
     sa = (((8, 2, 4), (16, 0.3, 8, (8, 16))),
           ((16, 2, 4), (8, 0.4, 8, (16, 32))),
           (None, (4, 0.8, 8, (32, 64))))
@@ -235,95 +366,107 @@ def tiny_parity(dev):
     cfg = ProjectionConfig(image_size=16, image_feature_model="identity",
                            raster_point_radius=0.3,
                            point_cloud_model_embed_dim=8)
-    outs = []
+    outs = {"BDM-B": [], "BDM-M": []}
     image = torch.rand(2, 16, 16, 3,
                        generator=torch.Generator().manual_seed(1))
     for d in ("cpu", dev):
-        pc2 = PC2Model(cfg, sa, fp)
-        pvd = PVDModel(embed_dim=8, sa_blocks=sa, fp_blocks=fp)
+        pc2 = PC2Model(cfg, sa, fp, device=d)
+        pvd = PVDModel(embed_dim=8, sa_blocks=sa, fp_blocks=fp, device=d)
+        merge = BDMMergingModel(cfg, sa, fp, device=d)
         pc2.reset_parameters(SEED)
         pvd.reset_parameters(SEED + 1)
         with torch.no_grad():   # a visible head, the same on both devices
-            pc2.backbone.classifier[2].weight.normal_(
-                0.0, 0.1, generator=torch.Generator().manual_seed(5))
-        pc2.to(d)
-        pvd.to(d)
+            head = pc2.backbone.classifier[2].weight
+            head.copy_(torch.randn(
+                head.shape, generator=torch.Generator().manual_seed(5)) * 0.1)
+        merge.init_from_pretrained(pc2, pvd, seed=SEED + 2)
+        live_zero_convs(merge, SEED + 3)
         batch = {"image": image.to(d),
                  "camera": camera(2, d)}
-        outs.append(bdm_blending(pc2, pvd, batch, 64, [8, 7, 5, 3, 0], 1,
-                                 noise=_CpuNoise(SEED, d),
-                                 num_inference_steps=8).cpu())
-    err = (outs[0] - outs[1]).abs().max().item()
-    print(f"tiny BDM-B, kernels vs CPU plain: max|err| {err:.3e}")
-    if not (torch.isfinite(outs[1]).all() and err < 1e-3):
-        fail(f"tiny BDM-B on the card differs from the CPU run: {err}")
+        outs["BDM-B"].append(bdm_blending(
+            pc2, pvd, batch, 64, [8, 7, 5, 3, 0], 1,
+            noise=_CpuNoise(SEED, d), num_inference_steps=8).cpu())
+        outs["BDM-M"].append(bdm_merging(
+            merge, pc2, pvd, batch, 64, [8, 6, 4, 2, 0], 2,
+            noise=_CpuNoise(SEED, d), num_inference_steps=8).cpu())
+    for name, (cpu, card) in outs.items():
+        err = (cpu - card).abs().max().item()
+        print(f"tiny {name}, kernels vs CPU plain: max|err| {err:.3e}")
+        if not (torch.isfinite(card).all() and err < 1e-3):
+            fail(f"tiny {name} on the card differs from the CPU run: {err}")
 
 
-def production_models(dev):
+def forwards(pc2, merge, dev):
+    """Phase b: one PC2 denoise step and one fusion forward, B=8, N=4096,
+    bf16: host clock around a synchronised call, median after warm-up, and
+    the kernel launches of one call."""
     import torch
-    from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig, PVDModel
-    pc2 = PC2Model(ProjectionConfig(mixed_precision="bf16"))
-    pvd = PVDModel(mixed_precision="bf16")
-    pc2.reset_parameters(SEED)
-    pvd.reset_parameters(SEED + 1)
-    return pc2.to(dev).eval(), pvd.to(dev).eval()
-
-
-def denoise_step(pc2, dev):
-    """Phase b: one PC2 denoise step, B=8, N=4096, bf16."""
-    import torch
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.tools.standins import camera
     g = torch.Generator().manual_seed(SEED + 2)
     b, n = 8, 4096
     image = torch.rand(b, 224, 224, 3, generator=g).to(dev)
     cond = pc2.prepare_cond(pc2.conditioning_map(image))
     cam = camera(b, dev)
     x = (torch.randn(b, n, 3, generator=g) * 0.3).to(dev)
+    prior = (torch.randn(b, n, 3, generator=g) * 0.3).to(dev)
     t = torch.full((b,), 500, dtype=torch.long, device=dev)
-    times = []
-    for i in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eps = pc2.denoise(x, t, cam, cond)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    if eps.shape != (b, n, 3) or not torch.isfinite(eps).all():
-        fail(f"denoise step output {tuple(eps.shape)} not finite")
-    ms = statistics.median(times[1:]) * 1e3
-    print(f"PC2 denoise step B={b} N={n} bf16: {ms:.2f} ms "
-          f"(median of {len(times) - 1} after warm-up)")
-    return ms
+    calls = {
+        "pc2_forward": lambda: pc2.denoise(x, t, cam, cond),
+        "fusion_forward": lambda: merge.predict(x, prior, 500, cam, cond,
+                                                "fusion_nstep"),
+    }
+    out = {}
+    for name, call in calls.items():
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            eps = call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if eps.shape != (b, n, 3) or not torch.isfinite(eps).all():
+            fail(f"{name} output {tuple(eps.shape)} not finite")
+        ms = statistics.median(times[1:]) * 1e3
+        launches = {k: v[0] for k, v in kernels.counts().items()}
+        print(f"{name} B={b} N={n} bf16: {ms:.2f} ms (median of "
+              f"{len(times) - 1} after warm-up); launches "
+              f"{json.dumps(launches)}")
+        out[name] = dict(ms=ms, launches=launches)
+    return out
 
 
-def main_path(pc2, pvd, dev):
-    """Phase c: BDM-Blending at full width; returns the launch counts."""
+def sampler_path(name, run, milestones, roll_step, dev):
+    """Phases c and e: one sampler end to end at full width, B=2, N=4096,
+    50 DDPM steps; returns the launch counts and the wall time."""
     import torch
     from bdm_tpu_torch.ops import cuda as kernels
-    from bdm_tpu_torch.samplers import NoiseProvider, bdm_blending
+    from bdm_tpu_torch.samplers import NoiseProvider
+    from bdm_tpu_torch.tools.standins import camera
     b, n = 2, 4096
     g = torch.Generator().manual_seed(SEED + 3)
     batch = {"image": torch.rand(b, 224, 224, 3, generator=g).to(dev),
              "camera": camera(b, dev)}
-    milestones = [50, 48, 46, 44, 6, 4, 2, 0]
     torch.cuda.synchronize()
     kernels.reset_counts()
     t0 = time.perf_counter()
-    out = bdm_blending(pc2, pvd, batch, n, milestones, roll_step=1,
-                       noise=NoiseProvider(SEED, dev),
-                       num_inference_steps=50)
+    out = run(batch, n, milestones, roll_step, noise=NoiseProvider(SEED),
+              num_inference_steps=50)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.counts()
-    print(f"BDM-B B={b} N={n} bf16, 50 steps, milestones {milestones}: "
-          f"{wall:.2f} s wall")
+    print(f"{name} B={b} N={n} bf16, 50 steps, milestones {milestones}, "
+          f"roll {roll_step}: {wall:.2f} s wall")
     print("launch counts (kernel, plain on CUDA):", json.dumps(counts))
     if out.shape != (b, n, 3) or not torch.isfinite(out).all():
-        fail(f"BDM-B output {tuple(out.shape)} not finite")
-    for name, (launches, plain) in counts.items():
+        fail(f"{name} output {tuple(out.shape)} not finite")
+    for kernel, (launches, plain) in counts.items():
         if launches <= 0:
-            fail(f"kernel {name} never launched on the main path")
+            fail(f"kernel {kernel} never launched on the {name} path")
         if plain != 0:
-            fail(f"plain version of {name} ran on the card {plain} times")
-    return counts, wall
+            fail(f"plain version of {kernel} ran on the card {plain} times")
+    return {k: v[0] for k, v in counts.items()}, wall
 
 
 def main() -> int:
@@ -339,7 +482,11 @@ def main() -> int:
     # the plain versions serve as references: no TF32 in them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from functools import partial
+
     from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.samplers import bdm_blending, bdm_merging
+    from bdm_tpu_torch.tools.standins import production_models
 
     card = smi_line()
     print(f"card: {card}")
@@ -350,17 +497,29 @@ def main() -> int:
 
     res = check_kernels(dev)
     tiny_parity(dev)
-    pc2, pvd = production_models(dev)
-    step_ms = denoise_step(pc2, dev)
-    counts, wall = main_path(pc2, pvd, dev)
+    pc2, pvd, merge = production_models(SEED)
+    fwd = forwards(pc2, merge, dev)
+    blend, blend_wall = sampler_path(
+        "BDM-B", partial(bdm_blending, pc2, pvd),
+        [50, 48, 46, 44, 6, 4, 2, 0], 1, dev)
+    merged, merge_wall = sampler_path(
+        "BDM-M", partial(bdm_merging, merge, pc2, pvd),
+        [50, 46, 42, 38, 12, 8, 4, 0], 2, dev)
 
     rows = []
     for name, (mod, source, replaces) in kernels.KERNELS.items():
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=counts[name][0],
-                         max_abs_err=res[name]["max_abs_err"],
-                         ms=res[name]["ms"], plain_ms=res[name]["plain_ms"]))
-    print(json.dumps({"denoise_step_ms": step_ms, "bdm_b_wall_s": wall}))
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=blend[name],   # BDM-Blending's, as before BDM-Merging
+            launches_by_path=dict(
+                bdm_blending=blend[name], bdm_merging=merged[name],
+                pc2_forward=fwd["pc2_forward"]["launches"][name],
+                fusion_forward=fwd["fusion_forward"]["launches"][name]),
+            **res[name]))
+    print(json.dumps({"denoise_step_ms": fwd["pc2_forward"]["ms"],
+                      "fusion_forward_ms": fwd["fusion_forward"]["ms"],
+                      "bdm_b_wall_s": blend_wall,
+                      "bdm_m_wall_s": merge_wall}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The six Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
+"""The seven Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
 versions, on the card. Without a CUDA device every test here skips (a
 CUDA kernel has no CPU mode). This file imports torch only, so it also
 runs where JAX is not installed:
@@ -8,7 +8,9 @@ runs where JAX is not installed:
 Tolerances: indices exact; float32 results 1e-5 of the largest value
 (the same float32 operations, summed in another order for the conv and
 attention); bfloat16 outputs 1e-2 of the largest value (one bfloat16
-rounding of sums that differ in their last float32 bits).
+rounding of sums that differ in their last float32 bits); the bf16
+three-neighbour blend 4e-3 (one bfloat16 ulp: its float32 sums are the
+plain version's bit for bit, an FMA of an exact product rounds the same).
 """
 
 import pytest
@@ -18,7 +20,8 @@ from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
                                     conv3d as k_conv, fps as k_fps,
-                                    three_nn as k_tnn, voxelize as k_vox)
+                                    interp as k_interp, three_nn as k_tnn,
+                                    voxelize as k_vox)
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +76,21 @@ def test_scatter_conv_attention(dev, dtype):
     q = (_cloud(dev, 2, 600, 64, seed=5) * 0.3).to(dtype)
     assert _rel(k_attn.attention(q, q, q),
                 k_attn.attention_plain(q, q, q)) < tol
+
+
+@pytest.mark.parametrize("n,m,c", [(1024, 256, 256), (512, 128, 40),
+                                   (200, 128, 12)],
+                         ids=["C256", "C40", "C12-scalar"])
+def test_interp_mm(dev, n, m, c):
+    x = _cloud(dev, 2, n, 3, seed=6)
+    ctr = _cloud(dev, 2, m, 3, seed=7)
+    idx, w = k_tnn.three_nn(x, ctr)
+    f = _cloud(dev, 2, m, c, seed=8).to(torch.bfloat16)
+    out = k_interp.interp_mm(idx, w, f)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, n, c)
+    assert _rel(out, k_interp.interp_mm_plain(idx, w, f)) < 4e-3
+    with pytest.raises(TypeError):
+        k_interp.interp_mm(idx, w, f.float())
 
 
 def test_launch_counters(dev):

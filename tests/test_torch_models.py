@@ -120,7 +120,8 @@ def test_weight_round_trip_is_bit_exact(monkeypatch):
     }
     cfg = ProjectionConfig(image_size=16, image_feature_model="tiny",
                            point_cloud_model_embed_dim=8)
-    pc2 = PC2Model(cfg, TINY_SA, TINY_FP, vit_kwargs=TINY_VIT)
+    pc2 = PC2Model(cfg, TINY_SA, TINY_FP, vit_kwargs=TINY_VIT,
+                   device="cpu")
     CJ.load_into(pc2, CJ.pc2_state_dict(params, pc2.backbone.specs))
     sd = {k: v.numpy() for k, v in pc2.state_dict().items()}
     specs = CT.build_pvcnn2_specs(TINY_SA, TINY_FP,
@@ -138,7 +139,8 @@ def test_weight_round_trip_is_bit_exact(monkeypatch):
     _assert_trees_equal(back, params)
 
     _, pvd_params, _, _ = _jax_pvcnn2(0, seed=6)
-    pvd = PVDModel(embed_dim=8, sa_blocks=TINY_SA, fp_blocks=TINY_FP)
+    pvd = PVDModel(embed_dim=8, sa_blocks=TINY_SA, fp_blocks=TINY_FP,
+                   device="cpu")
     CJ.load_into(pvd, CJ.pvd_state_dict(pvd_params, pvd.model.specs))
     sd = {k: v.numpy() for k, v in pvd.state_dict().items()}
     pspecs = CT.build_pvcnn2_specs(TINY_SA, TINY_FP, extra_feature_channels=0)

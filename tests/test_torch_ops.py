@@ -8,7 +8,10 @@ through the port. Tolerances:
   * float results, port plain vs JAX plain at float32: 1e-5 relative
     (the two frameworks sum in different orders);
   * port plain vs Pallas interpret: 3e-2 relative and absolute, because
-    the Pallas kernels contract in bfloat16 (the bench's per-kernel bound).
+    the Pallas kernels contract in bfloat16 (the bench's per-kernel bound);
+  * `interp_mm_plain` vs the Pallas `interp_mm` and vs the gather form:
+    8e-3 of the largest output, one bfloat16 rounding (2^-8 = 3.9e-3, on
+    the output and, against the gather form, on the weights).
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_kernels_cuda.py.
 """
@@ -27,6 +30,7 @@ from bdm_tpu.ops.pallas.attention import _attention_pallas_fwd_only
 from bdm_tpu.ops.pallas.ball_query import ball_query_pallas
 from bdm_tpu.ops.pallas.conv3d import conv3d_mm_pallas, conv3d_ms_pallas
 from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
+from bdm_tpu.ops.pallas.interp_mm import interp_mm as jax_interp_mm
 from bdm_tpu.ops.pallas.three_nn import three_nn_pallas
 from bdm_tpu.ops.pallas.voxelize import scatter_sum_sorted_padded_pallas
 from bdm_tpu.ops.voxelize import run_counts_sorted
@@ -34,10 +38,12 @@ from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
                                     conv3d as k_conv, fps as k_fps,
-                                    three_nn as k_tnn, voxelize as k_vox)
+                                    interp as k_interp, three_nn as k_tnn,
+                                    voxelize as k_vox)
 
 F32_RTOL = 1e-5
 BF16_TOL = 3e-2
+BF16_ROUNDING = 8e-3
 
 
 def _t(x):
@@ -139,6 +145,56 @@ def test_three_nn_interpolate():
     want = jops.three_nn_interpolate(jnp.asarray(pts), jnp.asarray(ctr),
                                      jnp.asarray(f))
     _close(got.numpy(), want, F32_RTOL)
+
+
+@pytest.mark.parametrize("n", [512, 192], ids=["N512", "N192"])
+def test_interp_mm_plain(n):
+    """The bf16 blend against the Pallas kernel (interpret mode off the
+    TPU) and against the float32-weight gather form, M 128, C 32."""
+    m, c = 128, 32
+    pts, ctr = _cloud(20, 2, n), _cloud(21, 2, m)
+    f = np.random.default_rng(22).standard_normal((2, m, c)).astype(
+        np.float32)
+    idx, w = ops.three_nn(_t(pts), _t(ctr))
+    fb = _t(f).to(torch.bfloat16)
+    got = k_interp.interp_mm_plain(idx, w, fb)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, n, c)
+    pallas = jax_interp_mm(jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()),
+                           jnp.asarray(f).astype(jnp.bfloat16))
+    assert pallas.dtype == jnp.bfloat16
+    _close(got.float().numpy(), np.asarray(pallas.astype(jnp.float32)),
+           BF16_ROUNDING)
+    gather = ops.three_nn_interpolate(_t(pts), _t(ctr), fb, impl="gather")
+    assert gather.dtype == torch.float32
+    _close(got.float().numpy(), gather.numpy(), BF16_ROUNDING)
+    # the dispatcher's "onehot" form is this function
+    forced = ops.three_nn_interpolate(_t(pts), _t(ctr), fb, impl="onehot")
+    assert torch.equal(forced, got)
+
+
+@pytest.mark.parametrize("dtype,n,m,onehot", [
+    (torch.bfloat16, 256, 128, True),
+    (torch.bfloat16, 1024, 128, True),     # two query tiles of 512
+    (torch.float32, 256, 128, False),      # float32 features
+    (torch.bfloat16, 256, 64, False),      # M < 128
+    (torch.bfloat16, 640, 128, False),     # N not a multiple of 512
+], ids=["bf16", "bf16-N1024", "f32", "M64", "N640"])
+def test_interpolate_dispatch(dtype, n, m, onehot):
+    """The reference's rule on its accelerator, without the environment
+    variable: the one-hot form returns bf16, the gather form float32."""
+    pts, ctr = _t(_cloud(23, 1, n)), _t(_cloud(24, 1, m))
+    f = torch.from_numpy(np.random.default_rng(25).standard_normal(
+        (1, m, 8)).astype(np.float32)).to(dtype)
+    out = ops.three_nn_interpolate(pts, ctr, f)
+    assert out.dtype == (torch.bfloat16 if onehot else torch.float32)
+    want = ops.three_nn_interpolate(pts, ctr, f,
+                                    impl="onehot" if onehot else "gather")
+    assert torch.equal(out, want)
+    with pytest.raises(ValueError):
+        ops.three_nn_interpolate(pts, ctr, f, impl="mxu")
+    if dtype == torch.float32:     # the bf16 blend takes no float32 features
+        with pytest.raises(TypeError):
+            ops.three_nn_interpolate(pts, ctr, f, impl="onehot")
 
 
 # ---------------------------------------------------------- voxelize
@@ -249,6 +305,9 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.furthest_point_sample(x, 8)
     ops.ball_query(x[:, :8], x, 0.5, 4)
     ops.three_nn(x, x[:, :8])
+    ops.three_nn_interpolate(x, x[:, :8],
+                             torch.zeros(1, 8, 4, dtype=torch.bfloat16),
+                             impl="onehot")
     ctx = ops.make_voxel_context(x, 4)
     g = ops.avg_voxelize(x, ctx, 4)
     ops.voxel_conv3d(g, torch.zeros(4, 3, 3, 3, 3), torch.zeros(4))
@@ -261,14 +320,17 @@ def test_cpu_tensors_take_the_plain_versions():
     lambda t: k_fps.furthest_point_sample(t, 4),
     lambda t: k_bq.ball_query(t, t, 0.5, 4),
     lambda t: k_tnn.three_nn(t, t),
+    lambda t: k_interp.interp_mm(
+        t.new_zeros((1, 16, 3), dtype=torch.int32), t,
+        t.new_zeros((1, 16, 8), dtype=torch.bfloat16)),
     lambda t: k_attn.attention(t, t, t),
     lambda t: k_vox.scatter_mean(
         t, *(t.new_zeros(s, dtype=torch.int32)
              for s in ((1, 16), (1, 16), (1, 9))), 2),
     lambda t: k_conv.conv3d(t.new_zeros((1, 4, 4, 4, 3)),
                             t.new_zeros((4, 3, 3, 3, 3)), t.new_zeros(4)),
-], ids=["fps", "ball_query", "three_nn", "attention", "scatter_mean",
-        "conv3d"])
+], ids=["fps", "ball_query", "three_nn", "interp_mm", "attention",
+        "scatter_mean", "conv3d"])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor off the CPU launches the kernel or raises; here (no CUDA
     device) a meta tensor must raise, not run the plain version."""
@@ -280,7 +342,9 @@ def test_non_cpu_tensor_never_falls_back(call):
 
 def test_package_imports_without_jax():
     code = ("import sys, bdm_tpu_torch, bdm_tpu_torch.ops, "
-            "bdm_tpu_torch.models, bdm_tpu_torch.samplers, "
+            "bdm_tpu_torch.models, bdm_tpu_torch.models.fusion, "
+            "bdm_tpu_torch.samplers, bdm_tpu_torch.samplers.merging, "
+            "bdm_tpu_torch.diffusion.ddim, bdm_tpu_torch.tools.standins, "
             "bdm_tpu_torch.utils.convert_jax; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)

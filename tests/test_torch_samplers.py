@@ -110,9 +110,11 @@ def test_gaussian_p_sample():
 
 
 class JaxKeyNoise(NoiseProvider):
-    """Replays the key tree of `bdm_tpu.samplers.bdm_blending`:
-    split(key) -> (k_init, key); per milestone split(key, 5) ->
-    (k_seg, k_recon, k_prior, k_mix, key); per window split(k, n_steps)."""
+    """Replays the key tree of `bdm_tpu.samplers.bdm_blending` and
+    `bdm_merging`: split(key) -> (k_init, key); per milestone
+    split(key, 5) -> (k_seg, k_recon, k_prior, k_mix or k_f, key); per
+    window split(k, n_steps). The fourth key draws the blend mask in
+    BDM-Blending and the fusion step's noise in BDM-Merging."""
 
     def __init__(self, key, times):
         k_init, key = jax.random.split(key)
@@ -134,6 +136,10 @@ class JaxKeyNoise(NoiseProvider):
     def mask(self, i, shape):
         return torch.from_numpy(np.array(
             jax.random.randint(self.keys[i]["mix"], shape, 0, 2)))
+
+    def fuse(self, i, shape):
+        return torch.from_numpy(np.array(
+            jax.random.normal(self.keys[i]["mix"], shape, jnp.float32)))
 
 
 def _init(backbone, seed, channels):
@@ -175,8 +181,9 @@ def test_bdm_blending_tiny_matches_jax():
     cfg = ProjectionConfig(image_size=S, image_feature_model="identity",
                            raster_point_radius=0.3,
                            point_cloud_model_embed_dim=8)
-    pc2 = PC2Model(cfg, TINY_SA, TINY_FP)
-    pvd = PVDModel(embed_dim=8, sa_blocks=TINY_SA, fp_blocks=TINY_FP)
+    pc2 = PC2Model(cfg, TINY_SA, TINY_FP, device="cpu")
+    pvd = PVDModel(embed_dim=8, sa_blocks=TINY_SA, fp_blocks=TINY_FP,
+                   device="cpu")
     CJ.load_into(pc2, CJ.pc2_state_dict(pc2_params, pc2.backbone.specs))
     CJ.load_into(pvd, CJ.pvd_state_dict(pvd_params, pvd.model.specs))
     got = bdm_blending(pc2, pvd, {"image": torch.from_numpy(image),
@@ -192,8 +199,9 @@ def test_default_noise_is_seeded():
     cfg = ProjectionConfig(image_size=S, image_feature_model="identity",
                            raster_point_radius=0.3,
                            point_cloud_model_embed_dim=8)
-    pc2 = PC2Model(cfg, TINY_SA, TINY_FP)
-    pvd = PVDModel(embed_dim=8, sa_blocks=TINY_SA, fp_blocks=TINY_FP)
+    pc2 = PC2Model(cfg, TINY_SA, TINY_FP, device="cpu")
+    pvd = PVDModel(embed_dim=8, sa_blocks=TINY_SA, fp_blocks=TINY_FP,
+                   device="cpu")
     pc2.reset_parameters(0)
     pvd.reset_parameters(1)
     _, tcam = _cams(B)
@@ -201,7 +209,7 @@ def test_default_noise_is_seeded():
                                  generator=torch.Generator().manual_seed(0)),
              "camera": tcam}
     outs = [bdm_blending(pc2, pvd, batch, N, [4, 3, 1, 0], 1,
-                         noise=NoiseProvider(seed=7),
+                         noise=NoiseProvider(seed=7, device="cpu"),
                          num_inference_steps=4) for _ in range(2)]
     assert torch.isfinite(outs[0]).all()
     assert torch.equal(outs[0], outs[1])
