@@ -3,7 +3,7 @@
 The second package beside `bdm_tpu` (the JAX reference, which stays
 unchanged). Same layout: `ops/` (point ops; the TPU kernels of the ported
 paths as hand-written CUDA kernels in `ops/cuda/`, sources in `csrc/`),
-`models/`, `diffusion/`, `conditioning/`, `samplers/`, `utils/`.
+`models/`, `diffusion/`, `conditioning/`, `samplers/`, `train/`, `utils/`.
 
 Activations are channel-last (B, N, C) at every public function, as in
 `bdm_tpu`; modules keep the reference checkpoints' state_dict keys. This
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 def default_device() -> torch.device:

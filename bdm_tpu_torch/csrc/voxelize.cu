@@ -1,13 +1,18 @@
 // Voxel scatter-mean from the sorted voxel context.
 //
-// Replaces the TPU kernel `_scatter_sorted_padded_kernel` /
-// `scatter_sum_sorted_padded_pallas` (bdm_tpu/ops/pallas/voxelize.py).
+// Replaces the TPU kernels `_scatter_sorted_padded_kernel` /
+// `scatter_sum_sorted_padded_pallas` (bf16, D-padded) and
+// `_scatter_sorted_kernel` / `scatter_sum_sorted_pallas` (float32,
+// unpadded) of bdm_tpu/ops/pallas/voxelize.py.
 // Semantics: each voxel holds the mean of the features of its points, as
 // the sum of contributions already divided by the voxel's count, summed in
 // voxel-sorted point order in float32 and rounded once to the output type
-// at the store; empty voxels are zero. The TPU kernel's one-hot matmul and
-// D-padded layout work around Mosaic; here the output is the plain
-// channel-last (B, R, R, R, C) grid that conv3d.cu reads.
+// at the store; empty voxels are zero. With `divide` = 0 the contributions
+// are not divided and each voxel holds the raw sum (the contract of
+// `scatter_sum_sorted_pallas`, whose callers divide themselves or append a
+// count channel). The TPU kernels' one-hot matmul and D-padded layout work
+// around Mosaic; here the output is the plain channel-last
+// (B, R, R, R, C) grid that conv3d.cu reads.
 //
 // Bound on the H100: bytes. Every output element is written once and
 // every input feature is read once (through the sort permutation).
@@ -25,7 +30,7 @@ __global__ void scatter_mean_kernel(const TI* __restrict__ feats,
                                     const int* __restrict__ order,
                                     const int* __restrict__ voxel_lo,
                                     TO* __restrict__ out, int n, int c,
-                                    int r3, long long total) {
+                                    int r3, int divide, long long total) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (e >= total) return;
@@ -38,7 +43,8 @@ __global__ void scatter_mean_kernel(const TI* __restrict__ feats,
   const int hi = lo_b[v + 1];
   float acc = 0.0f;
   if (hi > lo) {
-    const float cnt = static_cast<float>(hi - lo);
+    // x / 1.0f is x: the raw sum shares the loop
+    const float cnt = divide ? static_cast<float>(hi - lo) : 1.0f;
     const int* ord = order + static_cast<size_t>(b) * n;
     const TI* f = feats + static_cast<size_t>(b) * n * c + ch;
     for (int p = lo; p < hi; ++p) {
@@ -51,13 +57,14 @@ __global__ void scatter_mean_kernel(const TI* __restrict__ feats,
 
 template <typename TI, typename TO>
 int launch(const void* feats, const int* order, const int* voxel_lo,
-           void* out, int b, int n, int c, int r3, cudaStream_t stream) {
+           void* out, int b, int n, int c, int r3, int divide,
+           cudaStream_t stream) {
   const long long total = static_cast<long long>(b) * r3 * c;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
   scatter_mean_kernel<TI, TO><<<blocks, threads, 0, stream>>>(
       static_cast<const TI*>(feats), order, voxel_lo, static_cast<TO*>(out),
-      n, c, r3, total);
+      n, c, r3, divide, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -65,19 +72,19 @@ int launch(const void* feats, const int* order, const int* voxel_lo,
 
 BDM_EXPORT int bdm_scatter_mean(const void* feats, const int* order,
                                 const int* voxel_lo, void* out, int b, int n,
-                                int c, int r3, int in_dtype, int out_dtype,
-                                cudaStream_t stream) {
+                                int c, int r3, int divide, int in_dtype,
+                                int out_dtype, cudaStream_t stream) {
   if (in_dtype == BDM_F32 && out_dtype == BDM_F32)
     return launch<float, float>(feats, order, voxel_lo, out, b, n, c, r3,
-                                stream);
+                                divide, stream);
   if (in_dtype == BDM_F32 && out_dtype == BDM_BF16)
     return launch<float, __nv_bfloat16>(feats, order, voxel_lo, out, b, n, c,
-                                        r3, stream);
+                                        r3, divide, stream);
   if (in_dtype == BDM_BF16 && out_dtype == BDM_F32)
     return launch<__nv_bfloat16, float>(feats, order, voxel_lo, out, b, n, c,
-                                        r3, stream);
+                                        r3, divide, stream);
   if (in_dtype == BDM_BF16 && out_dtype == BDM_BF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(feats, order, voxel_lo, out,
-                                                b, n, c, r3, stream);
+                                                b, n, c, r3, divide, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

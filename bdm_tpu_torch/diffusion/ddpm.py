@@ -19,6 +19,26 @@ import torch
 f32 = np.float32
 
 
+class ForwardTables:
+    """q(x_t | x_0) = sqrt_acp[t] * x0 + sqrt_one_minus[t] * noise for
+    per-sample timesteps t (B,) int. The two float32 tables are kept on
+    every device they are asked for, so a training step indexes them there
+    and the host does not wait for t."""
+
+    def __init__(self, sqrt_acp: np.ndarray, sqrt_one_minus: np.ndarray):
+        self.host = (torch.from_numpy(sqrt_acp.astype(f32)),
+                     torch.from_numpy(sqrt_one_minus.astype(f32)))
+        self.on = {}
+
+    def __call__(self, x0: torch.Tensor, noise: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+        if x0.device not in self.on:
+            self.on[x0.device] = tuple(a.to(x0.device) for a in self.host)
+        a, s = self.on[x0.device]
+        shape = (-1,) + (1,) * (x0.dim() - 1)
+        return a[t].reshape(shape) * x0 + s[t].reshape(shape) * noise
+
+
 class AlphaTable:
     """What the DDPM and DDIM schedulers share: the cumulative alphas and
     the descending inference timesteps."""
@@ -28,6 +48,11 @@ class AlphaTable:
         self.num_train_timesteps = len(betas)
         self.alphas_cumprod = np.cumprod(1.0 - betas).astype(np.float32)
         self._num_inference_steps = self.num_train_timesteps
+        # add_noise(x0, noise, t): float32 square roots of the float32
+        # table, as the reference takes them
+        self.add_noise = ForwardTables(
+            np.sqrt(self.alphas_cumprod),
+            np.sqrt(f32(1.0) - self.alphas_cumprod))
 
     def set_timesteps(self, num_inference_steps: int) -> np.ndarray:
         """Descending timesteps: round(arange(S) * (T // S)) reversed."""

@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bdm_tpu_torch.diffusion.ddpm import ForwardTables
+
 f32 = np.float32
 
 
@@ -21,6 +23,8 @@ class GaussianDiffusion:
         acp = np.cumprod(alphas)
         acp_prev = np.append(1.0, acp[:-1])
         post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
+        # q_sample(x0, noise, t): the float64 tables rounded once
+        self.q_tables = ForwardTables(np.sqrt(acp), np.sqrt(1.0 - acp))
         self.sqrt_recip_acp = np.sqrt(1.0 / acp).astype(f32)
         self.sqrt_recipm1_acp = np.sqrt(1.0 / acp - 1.0).astype(f32)
         self.posterior_mean_coef1 = (
@@ -29,6 +33,12 @@ class GaussianDiffusion:
             (1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)).astype(f32)
         self.posterior_log_variance_clipped = np.log(
             np.maximum(post_var, 1e-20)).astype(f32)
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) for per-sample timesteps t (B,) int (the
+        reference's argument order)."""
+        return self.q_tables(x0, noise, t)
 
     def p_sample(self, denoise_fn, x_t: torch.Tensor, t: int,
                  noise: torch.Tensor) -> torch.Tensor:

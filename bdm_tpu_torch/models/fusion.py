@@ -61,36 +61,42 @@ class ZeroConvProj(nn.Sequential):
 
 class PVCNNFuse(nn.Module):
     """forward(recon input (B, N, 3 + S), prior cloud (B, N, 3), t (B,),
-    mode) -> (B, N, out_channels) float32."""
+    mode) -> (B, N, out_channels) float32. Leaves its constructor in
+    `eval()` mode."""
 
     def __init__(self, out_channels: int = 3, embed_dim: int = 64,
                  extra_feature_channels: int = 3, use_att: bool = True,
                  sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1,
+                 width_multiplier: int = 1,
+                 voxel_resolution_multiplier: int = 1):
         super().__init__()
         self.embed_dim = embed_dim
         self.dtype = dtype
-        self.pc2_specs = build_pvcnn2_specs(sa_blocks, fp_blocks,
-                                            extra_feature_channels, use_att)
-        self.pvd_specs = build_pvcnn2_specs(sa_blocks, fp_blocks, 0, use_att)
+        mult = (width_multiplier, voxel_resolution_multiplier)
+        self.pc2_specs = build_pvcnn2_specs(
+            sa_blocks, fp_blocks, extra_feature_channels, use_att, *mult)
+        self.pvd_specs = build_pvcnn2_specs(sa_blocks, fp_blocks, 0, use_att,
+                                            *mult)
         self.embedf = timestep_mlp(embed_dim)
         self.pc2_encoder = PVCNNEncoder(self.pc2_specs, embed_dim, use_att,
-                                        dtype)
+                                        dtype, dropout)
         self.pc2_model_sa_layers = self.pc2_encoder.sa_layers
         self.pvd_encoder = PVCNNEncoder(self.pvd_specs, embed_dim, use_att,
-                                        dtype)
+                                        dtype, dropout)
         self.pvd_model_sa_layers = self.pvd_encoder.sa_layers
         if use_att:
             self.pc2_model_global_att = self.pc2_encoder.global_att
             self.pvd_model_global_att = self.pvd_encoder.global_att
         self.decoder = PVCNNDecoder(self.pc2_specs, embed_dim, out_channels,
-                                    dtype)
+                                    dtype, dropout)
         self.fusion_decoder_fp_layers = self.decoder.fp_layers
         self.classifier = self.decoder.classifier
         # the skip scales of the PVD tower, then its bottleneck
         dims = list(self.pvd_specs.sa_in_channels[1:]) + [
             self.pvd_specs.channels_sa_features]
         self.projs = nn.ModuleList([ZeroConvProj(d) for d in dims])
+        self.eval()   # as PVCNN2: dropout off outside a training step
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:

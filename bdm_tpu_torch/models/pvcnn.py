@@ -79,10 +79,14 @@ class PVCNN2Specs:
 
 def build_pvcnn2_specs(sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
                        extra_feature_channels: int = 3,
-                       use_att: bool = True) -> PVCNN2Specs:
+                       use_att: bool = True, width_multiplier: int = 1,
+                       voxel_resolution_multiplier: int = 1) -> PVCNN2Specs:
     """The reference's channel accounting (`pvcnn_utils.py:72-168`):
     stage 0 keeps all its PVConvs, later stages only the first; attention
-    on the first conv of odd stages; FP stages never attend."""
+    on the first conv of odd stages; FP stages never attend. The width
+    multiplier scales every conv and MLP width, the resolution multiplier
+    every voxel grid."""
+    r, vr = width_multiplier, voxel_resolution_multiplier
     in_channels = extra_feature_channels + 3
     sa_stages, sa_in_channels = [], []
     for c, (conv_configs, sa_configs) in enumerate(sa_blocks):
@@ -90,12 +94,14 @@ def build_pvcnn2_specs(sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
         convs = []
         if conv_configs is not None:
             out_ch, num_blocks, res = conv_configs
+            out_ch = int(r * out_ch)
             for p in range(num_blocks):
                 attention = ((c + 1) % 2 == 0) and use_att and p == 0
                 if c == 0 or p == 0:
-                    convs.append(ConvSpec(out_ch, res, attention))
+                    convs.append(ConvSpec(out_ch, int(vr * res), attention))
                 in_channels = out_ch
         num_centers, radius, num_neighbors, mlp = sa_configs
+        mlp = tuple(int(r * oc) for oc in mlp)
         sa_stages.append(SAStageSpec(
             tuple(convs), SASpec(num_centers, radius, num_neighbors,
                                  tuple(mlp)), mlp[-1]))
@@ -103,10 +109,12 @@ def build_pvcnn2_specs(sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
     sa_in_channels[0] = extra_feature_channels
     fp_stages = []
     for fp_mlp, conv_configs in fp_blocks:
+        fp_mlp = tuple(int(r * oc) for oc in fp_mlp)
         convs = []
         if conv_configs is not None:
             out_ch, num_blocks, res = conv_configs
-            convs = [ConvSpec(out_ch, res, False)] * num_blocks
+            convs = [ConvSpec(int(r * out_ch), int(vr * res),
+                              False)] * num_blocks
         fp_stages.append(FPStageSpec(tuple(fp_mlp), tuple(convs)))
     return PVCNN2Specs(tuple(sa_stages), tuple(fp_stages),
                        tuple(sa_in_channels), in_channels)
@@ -127,21 +135,22 @@ class VoxConv(nn.Module):
 
 class PVConv(nn.Module):
     """Point-voxel conv (`modules/pvconv.py:65-97`): voxelize -> [conv ->
-    GN -> swish -> conv -> GN -> attention | swish] -> devoxelize, gated by
-    SE on the points, plus the pointwise SharedMLP branch.
+    GN -> swish -> dropout -> conv -> GN -> attention | swish] ->
+    devoxelize, gated by SE on the points, plus the pointwise SharedMLP
+    branch.
 
     Voxel grids run in the compute dtype (bf16 in production); geometry
     stays float32."""
 
     def __init__(self, cin: int, cout: int, resolution: int,
-                 attention: bool, dtype=None):
+                 attention: bool, dtype=None, dropout: float = 0.1):
         super().__init__()
         self.resolution = resolution
         self.attention = attention
         self.dtype = dtype
         self.voxel_layers = nn.ModuleList([
             VoxConv(cin, cout), GroupNormCL(8, cout), nn.SiLU(),
-            nn.Dropout(), VoxConv(cout, cout), GroupNormCL(8, cout),
+            nn.Dropout(dropout), VoxConv(cout, cout), GroupNormCL(8, cout),
             Attention(cout, 8, kdims=3, dtype=dtype) if attention
             else nn.SiLU(),
             SE(cout, dtype=dtype)])
@@ -153,7 +162,7 @@ class PVConv(nn.Module):
         dt = self.dtype or torch.float32
         r = self.resolution
         g = ops.avg_voxelize(features, ctx, r, out_dtype=dt)
-        g = swish(vl[1](vl[0](g), dt))
+        g = vl[3](swish(vl[1](vl[0](g), dt)))
         g = vl[5](vl[4](g), dt)
         if self.attention:
             b, c = g.shape[0], g.shape[-1]
@@ -238,7 +247,7 @@ class PVCNNEncoder:
     object builds the modules and runs them."""
 
     def __init__(self, specs: PVCNN2Specs, embed_dim: int, use_att: bool,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         self.dtype = dtype
         sa_layers = []
         for i, stage in enumerate(specs.sa_stages):
@@ -246,7 +255,7 @@ class PVCNNEncoder:
             convs = []
             for cs in stage.convs:
                 convs.append(PVConv(cin, cs.out_channels, cs.resolution,
-                                    cs.attention, dtype))
+                                    cs.attention, dtype, dropout))
                 cin = cs.out_channels
             sa = PointNetSA(stage.sa, cin, dtype)
             sa_layers.append(nn.Sequential(*convs, sa) if convs else sa)
@@ -283,7 +292,7 @@ class PVCNNDecoder:
     owner registers `fp_layers` and `classifier`."""
 
     def __init__(self, specs: PVCNN2Specs, embed_dim: int, out_channels: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1):
         ch = specs.channels_sa_features
         fp_layers = []
         for k, stage in enumerate(specs.fp_stages):
@@ -293,12 +302,12 @@ class PVCNNDecoder:
             convs = []
             for cs in stage.convs:
                 convs.append(PVConv(ch, cs.out_channels, cs.resolution,
-                                    False, dtype))
+                                    False, dtype, dropout))
                 ch = cs.out_channels
             fp_layers.append(nn.Sequential(fp, *convs))
         self.fp_layers = nn.ModuleList(fp_layers)
         self.classifier = nn.Sequential(
-            SharedMLP(ch, (128,), kdims=1, dtype=dtype), nn.Dropout(),
+            SharedMLP(ch, (128,), kdims=1, dtype=dtype), nn.Dropout(dropout),
             Conv1x1(128, out_channels, 1))
 
     def __call__(self, features: torch.Tensor, coords: torch.Tensor,
@@ -311,7 +320,7 @@ class PVCNNDecoder:
             features = fp(fine, coords, features, skips[-1 - k], temb)
             coords = fine
             features = _voxel_convs(convs, features, coords)
-        f = self.classifier[0](features).float()
+        f = self.classifier[1](self.classifier[0](features).float())
         return self.classifier[2](f, torch.float32)
 
 
@@ -333,28 +342,35 @@ def init_uniform(module: nn.Module, gen: torch.Generator) -> None:
 class PVCNN2(nn.Module):
     """The noise-prediction backbone (`pvcnn.py:10-150`):
     forward(inputs (B, N, 3 + S), t (B,)) -> (B, N, out_channels) float32.
-    Coordinates are the first 3 input channels."""
+    Coordinates are the first 3 input channels. The module leaves its
+    constructor in `eval()` mode (dropout off); a training step switches
+    to `train()` and back."""
 
     def __init__(self, out_channels: int = 3, embed_dim: int = 64,
                  extra_feature_channels: int = 3, use_att: bool = True,
                  sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
                  classifier_init_scale: Optional[float] = 1e-6,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.1,
+                 width_multiplier: int = 1,
+                 voxel_resolution_multiplier: int = 1):
         super().__init__()
         self.embed_dim = embed_dim
         self.classifier_init_scale = classifier_init_scale
         self.dtype = dtype
-        self.specs = build_pvcnn2_specs(sa_blocks, fp_blocks,
-                                        extra_feature_channels, use_att)
+        self.specs = build_pvcnn2_specs(
+            sa_blocks, fp_blocks, extra_feature_channels, use_att,
+            width_multiplier, voxel_resolution_multiplier)
         self.embedf = timestep_mlp(embed_dim)
-        self.encoder = PVCNNEncoder(self.specs, embed_dim, use_att, dtype)
+        self.encoder = PVCNNEncoder(self.specs, embed_dim, use_att, dtype,
+                                    dropout)
         self.sa_layers = self.encoder.sa_layers
         if use_att:
             self.global_att = self.encoder.global_att
         self.decoder = PVCNNDecoder(self.specs, embed_dim, out_channels,
-                                    dtype)
+                                    dtype, dropout)
         self.fp_layers = self.decoder.fp_layers
         self.classifier = self.decoder.classifier
+        self.eval()
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:

@@ -10,10 +10,12 @@ tensors (`plain_cuda_calls`), so a run can show which path it took.
 from __future__ import annotations
 
 from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, fps,
-                                    interp, three_nn, voxelize)
+                                    interp, scatter_sum, three_nn, voxelize)
 from bdm_tpu_torch.ops.cuda._lib import build
 
-# name -> (wrapper module, source, TPU kernel it replaces)
+_PALLAS = "bdm_tpu/ops/pallas/"
+
+# name -> (wrapper module, source, TPU kernels it replaces)
 KERNELS = {
     "fps": (fps, "bdm_tpu_torch/csrc/fps.cu",
             "bdm_tpu/ops/pallas/fps.py:61"),
@@ -23,10 +25,17 @@ KERNELS = {
                  "bdm_tpu/ops/pallas/three_nn.py:60"),
     "interp_mm": (interp, "bdm_tpu_torch/csrc/interp.cu",
                   "bdm_tpu/ops/pallas/interp_mm.py:49"),
+    # :201 sorted, D-padded bf16; :290 sorted, unpadded float32
     "scatter_mean": (voxelize, "bdm_tpu_torch/csrc/voxelize.cu",
-                     "bdm_tpu/ops/pallas/voxelize.py:201"),
+                     f"{_PALLAS}voxelize.py:201, {_PALLAS}voxelize.py:290"),
+    "scatter_sum": (scatter_sum, "bdm_tpu_torch/csrc/scatter_sum.cu",
+                    "bdm_tpu/ops/pallas/voxelize.py:38"),
+    # :69 per-slab, :199 whole grid, :350 multi-slice (roll and pad taps),
+    # :520 matmul-first (prepadded, and unpadded through :582)
     "conv3d": (conv3d, "bdm_tpu_torch/csrc/conv3d.cu",
-               "bdm_tpu/ops/pallas/conv3d.py:350"),   # and :520 (mm)
+               f"{_PALLAS}conv3d.py:69, {_PALLAS}conv3d.py:199, "
+               f"{_PALLAS}conv3d.py:350, {_PALLAS}conv3d.py:520, "
+               f"{_PALLAS}conv3d.py:582"),
     "attention": (attention, "bdm_tpu_torch/csrc/attention.cu",
                   "bdm_tpu/ops/pallas/attention.py:43"),
 }

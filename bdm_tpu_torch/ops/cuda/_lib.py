@@ -35,7 +35,8 @@ _SIGNATURES = {
     "bdm_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "bdm_interp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "bdm_scatter_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "bdm_scatter_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "bdm_scatter_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

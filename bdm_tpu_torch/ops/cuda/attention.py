@@ -4,6 +4,11 @@ version.
 Replaces `_attention_pallas_fwd_only` (bdm_tpu/ops/pallas/attention.py):
 softmax(q k^T) v with no 1/sqrt(C) scale, float32 logits and softmax,
 weights cast to v's type before the second product.
+
+`attention` is differentiable (`_attn_vjp_bwd`): the backward recomputes
+the float32 logits and softmax and applies the standard cotangents with
+`torch.matmul`, rounding where the reference rounds (the weights to v's
+type, the logits' cotangent to q's).
 """
 
 from __future__ import annotations
@@ -28,8 +33,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(w.float(), v.float()).to(v.dtype)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> torch.Tensor:
+def _forward(q, k, v):
     global launches
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
@@ -47,3 +51,35 @@ def attention(q: torch.Tensor, k: torch.Tensor,
                 out.data_ptr(), b, s, c, _lib.DTYPE_CODES[v.dtype])
     launches += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+        w32 = torch.softmax(torch.matmul(qf, kf.transpose(1, 2)), dim=-1)
+        # every (B, S, S) float32 tensor is 537 MB at B=8, S=4096: each is
+        # dropped as soon as the next is made
+        w = w32.to(v.dtype).float() if v.dtype != torch.float32 else w32
+        dv = torch.matmul(w.transpose(1, 2), gf).to(v.dtype)
+        del w
+        dw = torch.matmul(gf, vf.transpose(1, 2))
+        dw -= (dw * w32).sum(dim=-1, keepdim=True)
+        dw *= w32
+        del w32
+        dlogits = dw.to(q.dtype).float() if q.dtype != torch.float32 else dw
+        del dw
+        dq = torch.matmul(dlogits, kf).to(q.dtype)
+        dk = torch.matmul(dlogits.transpose(1, 2), qf).to(k.dtype)
+        return dq, dk, dv
+
+
+def attention(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    return _Attention.apply(q, k, v)

@@ -43,6 +43,7 @@ def ball_query_plain(centers: torch.Tensor, points: torch.Tensor,
     return torch.where(hits < n, hits, pad).to(torch.int32)
 
 
+@torch.no_grad()   # coordinates carry no gradient
 def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
                num_neighbors: int) -> torch.Tensor:
     global launches

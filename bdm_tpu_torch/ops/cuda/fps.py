@@ -42,6 +42,7 @@ def furthest_point_sample_plain(coords: torch.Tensor,
     return out
 
 
+@torch.no_grad()   # coordinates carry no gradient
 def furthest_point_sample(coords: torch.Tensor,
                           num_samples: int) -> torch.Tensor:
     """(B, N, 3) float32 -> (B, M) int32 furthest point sample."""

@@ -7,6 +7,12 @@ F[idx_k[n]], float32 accumulation in k order, one rounding to bf16. The
 TPU kernel's one-hot matrix sums the weights of equal indices before the
 rounding; `three_nn` returns three distinct indices for M >= 3, where the
 two forms agree up to the order of the float32 sum.
+
+`interp_mm` is differentiable in the features (`_interp_mm_bwd`): the 3N
+cotangent rows, each times its float32 weight (not the bf16-rounded one),
+are summed into the centres they were read from by `ops.cuda.scatter_sum`,
+and the sum is cast to the features' dtype. Indices and weights come from
+coordinates that carry no gradient.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from bdm_tpu_torch.ops.cuda import _lib
+from bdm_tpu_torch.ops.cuda import scatter_sum as _ss
 
 launches = 0
 plain_cuda_calls = 0
@@ -41,15 +48,16 @@ def interp_mm_plain(idx: torch.Tensor, w: torch.Tensor,
     b, n, _ = idx.shape
     c = feats.shape[-1]
     wb = w.to(torch.bfloat16).float()
-    g = torch.gather(feats, 1, idx.reshape(b, n * 3, 1).long()
-                     .expand(b, n * 3, c)).reshape(b, n, 3, c).float()
+    # float32 before the gather: the same values, and autograd then sums
+    # a centre's cotangent rows in float32, not in bf16
+    g = torch.gather(feats.float(), 1, idx.reshape(b, n * 3, 1).long()
+                     .expand(b, n * 3, c)).reshape(b, n, 3, c)
     out = (g[:, :, 0] * wb[..., 0:1] + g[:, :, 1] * wb[..., 1:2]) \
         + g[:, :, 2] * wb[..., 2:3]
     return out.to(feats.dtype)
 
 
-def interp_mm(idx: torch.Tensor, w: torch.Tensor,
-              feats: torch.Tensor) -> torch.Tensor:
+def _forward(idx, w, feats):
     global launches
     if feats.device.type == "cpu":
         return interp_mm_plain(idx, w, feats)
@@ -66,3 +74,25 @@ def interp_mm(idx: torch.Tensor, w: torch.Tensor,
                 out.data_ptr(), b, n, m, c)
     launches += 1
     return out
+
+
+class _InterpMM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, idx, w, feats):
+        ctx.save_for_backward(idx, w)
+        ctx.m, ctx.in_dtype = feats.shape[1], feats.dtype
+        return _forward(idx, w, feats)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w = ctx.saved_tensors
+        b, n, _ = idx.shape
+        rows = (g.float()[:, :, None, :] * w[..., None]).reshape(
+            b, n * 3, g.shape[-1])
+        df = _ss.scatter_sum(rows, idx.reshape(b, n * 3).contiguous(), ctx.m)
+        return None, None, df.to(ctx.in_dtype)
+
+
+def interp_mm(idx: torch.Tensor, w: torch.Tensor,
+              feats: torch.Tensor) -> torch.Tensor:
+    return _InterpMM.apply(idx, w, feats)

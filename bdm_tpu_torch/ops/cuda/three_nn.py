@@ -47,6 +47,7 @@ def three_nn_plain(points: torch.Tensor, centers: torch.Tensor):
     return idx, idw_weights(best)
 
 
+@torch.no_grad()   # coordinates carry no gradient
 def three_nn(points: torch.Tensor, centers: torch.Tensor):
     global launches
     if points.device.type == "cpu":

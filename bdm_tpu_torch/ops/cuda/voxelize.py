@@ -1,11 +1,18 @@
 """Voxel scatter-mean: the `csrc/voxelize.cu` kernel and its plain version.
 
-Replaces `scatter_sum_sorted_padded_pallas` (bdm_tpu/ops/pallas/voxelize.py)
-together with the pre-division of `_avg_voxelize_padded_fwd_impl`
+Replaces `scatter_sum_sorted_padded_pallas` and `scatter_sum_sorted_pallas`
+(bdm_tpu/ops/pallas/voxelize.py) together with the pre-division of
+`_avg_voxelize_padded_fwd_impl` and `_avg_voxelize_ctx_fwd_impl`
 (bdm_tpu/ops/voxelize.py): each contribution is divided by its voxel's
 count before the sum, the sum runs in sorted order in float32 and is
-rounded once to `out_dtype`. Output is the channel-last (B, R, R, R, C)
+rounded once to `out_dtype`. With `divide=False` the contributions are
+summed as they are (the raw-sum contract of `scatter_sum_sorted_pallas`
+under `_scatter_augmented`). Output is the channel-last (B, R, R, R, C)
 grid, not the TPU's D-padded layout.
+
+`scatter_mean` is differentiable in the features
+(`_avg_voxelize_ctx_bwd`): d out / d feature = grad[voxel(p)] / count, one
+gather, in the features' dtype.
 """
 
 from __future__ import annotations
@@ -21,20 +28,23 @@ plain_cuda_calls = 0
 def scatter_mean_plain(features: torch.Tensor, order: torch.Tensor,
                        ids_sorted: torch.Tensor, voxel_lo: torch.Tensor,
                        resolution: int,
-                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                       out_dtype: torch.dtype = torch.float32,
+                       divide: bool = True) -> torch.Tensor:
     """features (B, N, C); order / ids_sorted (B, N) int32 (the stable sort
     of the voxel ids); voxel_lo (B, R^3 + 1) int32 run starts
-    -> (B, R, R, R, C) mean grid, empty voxels zero."""
+    -> (B, R, R, R, C) mean grid (sum grid with `divide=False`), empty
+    voxels zero."""
     global plain_cuda_calls
     if features.is_cuda:
         plain_cuda_calls += 1
     b, n, c = features.shape
     r3 = resolution ** 3
-    f_sorted = torch.gather(features, 1,
-                            order.long()[..., None].expand(b, n, c))
-    counts = (voxel_lo[:, 1:] - voxel_lo[:, :-1])                # (B, R^3)
-    cnt = torch.gather(counts, 1, ids_sorted.long()).float()     # (B, N)
-    fm = f_sorted.float() / cnt[..., None]
+    fm = torch.gather(features, 1,
+                      order.long()[..., None].expand(b, n, c)).float()
+    if divide:
+        counts = (voxel_lo[:, 1:] - voxel_lo[:, :-1])            # (B, R^3)
+        cnt = torch.gather(counts, 1, ids_sorted.long()).float()  # (B, N)
+        fm = fm / cnt[..., None]
     flat = (ids_sorted.long()
             + torch.arange(b, device=features.device)[:, None] * r3)
     out = torch.zeros((b * r3, c), dtype=torch.float32,
@@ -43,14 +53,12 @@ def scatter_mean_plain(features: torch.Tensor, order: torch.Tensor,
     return out.reshape((b,) + (resolution,) * 3 + (c,)).to(out_dtype)
 
 
-def scatter_mean(features: torch.Tensor, order: torch.Tensor,
-                 ids_sorted: torch.Tensor, voxel_lo: torch.Tensor,
-                 resolution: int,
-                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def _forward(features, order, ids_sorted, voxel_lo, resolution, out_dtype,
+             divide):
     global launches
     if features.device.type == "cpu":
         return scatter_mean_plain(features, order, ids_sorted, voxel_lo,
-                                  resolution, out_dtype)
+                                  resolution, out_dtype, divide)
     dts = tuple(_lib.DTYPE_CODES)
     _lib.check(features, "features", dts, 3)
     _lib.check(order, "order", (torch.int32,), 2)
@@ -67,6 +75,42 @@ def scatter_mean(features: torch.Tensor, order: torch.Tensor,
                       device=features.device)
     _lib.launch("bdm_scatter_mean", features.data_ptr(), order.data_ptr(),
                 voxel_lo.data_ptr(), out.data_ptr(), b, n, c, r3,
-                _lib.DTYPE_CODES[features.dtype], _lib.DTYPE_CODES[out_dtype])
+                int(bool(divide)), _lib.DTYPE_CODES[features.dtype],
+                _lib.DTYPE_CODES[out_dtype])
     launches += 1
     return out
+
+
+class _ScatterMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, order, ids_sorted, voxel_lo, resolution,
+                out_dtype, divide, ids):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(ids, voxel_lo)
+            ctx.divide, ctx.in_dtype = divide, features.dtype
+        return _forward(features, order, ids_sorted, voxel_lo, resolution,
+                        out_dtype, divide)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, voxel_lo = ctx.saved_tensors
+        b, n = ids.shape
+        c = g.shape[-1]
+        ids = ids.long()
+        rows = torch.gather(g.reshape(b, -1, c), 1,
+                            ids[..., None].expand(b, n, c)).float()
+        if ctx.divide:
+            counts = (voxel_lo[:, 1:] - voxel_lo[:, :-1]).float()
+            rows = rows * (1.0 / torch.gather(counts, 1, ids))[..., None]
+        return (rows.to(ctx.in_dtype),) + (None,) * 7
+
+
+def scatter_mean(features: torch.Tensor, order: torch.Tensor,
+                 ids_sorted: torch.Tensor, voxel_lo: torch.Tensor,
+                 resolution: int, out_dtype: torch.dtype = torch.float32,
+                 divide: bool = True, *, ids: torch.Tensor) -> torch.Tensor:
+    """`ids` (B, N) int32, the voxel id of every point in the points' own
+    order, serves the backward's gather; the other arguments as
+    `scatter_mean_plain`."""
+    return _ScatterMean.apply(features, order, ids_sorted, voxel_lo,
+                              resolution, out_dtype, divide, ids)

@@ -4,7 +4,8 @@ The voxel context (normalized coordinates, voxel ids, their stable sort and
 the run start of every voxel in the sorted order) depends on the
 coordinates alone and is shared by every PVConv of a stage. The
 scatter-mean runs in the `csrc/voxelize.cu` kernel; devoxelization is plain
-PyTorch.
+PyTorch. Both differentiate in the features; the geometry carries no
+gradient.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def avg_voxelize(features: torch.Tensor, ctx: VoxelContext, resolution: int,
     """Scatter-mean (B, N, C) point features into the (B, R, R, R, C) grid
     (empty voxels zero), rounded once to `out_dtype`."""
     return _vox.scatter_mean(features.contiguous(), ctx.order, ctx.ids_sorted,
-                             ctx.voxel_lo, resolution, out_dtype)
+                             ctx.voxel_lo, resolution, out_dtype,
+                             ids=ctx.ids)
 
 
 def trilinear_devoxelize(grid: torch.Tensor,

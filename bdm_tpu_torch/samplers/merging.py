@@ -8,8 +8,8 @@ of the fusion network plus one scheduler step at t = `milestone -
 roll_step` merges them (`nstep_fuse`).
 
 Supported here: sampling (`bdm_merging`, `BDMMergingModel.sample`) with
-the DDPM and DDIM schedulers, `precontract=False`. The training loss is
-not ported.
+the DDPM and DDIM schedulers, `precontract=False`, and the training loss
+of the fusion network (`BDMMergingModel.loss`).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from bdm_tpu_torch.conditioning import PerspectiveCamera
 from bdm_tpu_torch.models.fusion import PVCNNFuse
 from bdm_tpu_torch.models.pvcnn import PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS
 from bdm_tpu_torch.samplers.blending import coupled_sampler
-from bdm_tpu_torch.samplers.noise import NoiseProvider
+from bdm_tpu_torch.samplers.noise import NoiseProvider, TrainNoise
 from bdm_tpu_torch.samplers.pc2 import (PC2Model, ProjectionConditioned,
                                         ProjectionConfig, _Holder)
 from bdm_tpu_torch.samplers.pvd import PVDModel
@@ -36,15 +36,19 @@ class BDMMergingModel(ProjectionConditioned):
 
     def __init__(self, cfg: ProjectionConfig = ProjectionConfig(),
                  sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
-                 vit_kwargs: Optional[dict] = None, device=None):
+                 vit_kwargs: Optional[dict] = None, device=None,
+                 dropout: float = 0.1, width_multiplier: int = 1,
+                 voxel_resolution_multiplier: int = 1):
         device = resolve_device(device)
         super().__init__(cfg, vit_kwargs)
         self.fusion_model = _Holder(PVCNNFuse(
             out_channels=3, embed_dim=cfg.point_cloud_model_embed_dim,
             extra_feature_channels=self.in_channels - 3,
             sa_blocks=sa_blocks, fp_blocks=fp_blocks,
-            dtype=self.compute_dtype))
-        self.to(device)
+            dtype=self.compute_dtype, dropout=dropout,
+            width_multiplier=width_multiplier,
+            voxel_resolution_multiplier=voxel_resolution_multiplier))
+        self.to(device).eval()
 
     @property
     def fusion(self) -> PVCNNFuse:
@@ -78,12 +82,22 @@ class BDMMergingModel(ProjectionConditioned):
         for proj in f.projs:
             proj.reset_parameters(g)
 
+    # -------------------------------------------------------------- training
+    def loss(self, batch: Dict[str, Any], noise: TrainNoise) -> torch.Tensor:
+        """eps-MSE through the fusion network in "fusion_1step" mode
+        (`model.py:372-419`): both towers read the noised cloud. Which
+        parameters train is the optimizer's business
+        (`train.fusion_freeze_mask`)."""
+        x_t, x_in, t, eps = self.noised_batch(batch, noise)
+        return torch.mean((self.fusion(x_in, x_t, t, "fusion_1step") - eps)
+                          ** 2)
+
     # -------------------------------------------------------------- sampling
-    @torch.inference_mode()
     def predict(self, recon: torch.Tensor, prior: torch.Tensor, t: int,
                 camera: PerspectiveCamera, cond: torch.Tensor,
                 mode: str) -> torch.Tensor:
-        """One eps prediction of the fusion network at timestep t."""
+        """One eps prediction of the fusion network at timestep t
+        (differentiable; the samplers call it under `inference_mode`)."""
         tb = torch.full((recon.shape[0],), int(t), dtype=torch.long,
                         device=recon.device)
         return self.fusion(self.x_t_input(recon, camera, cond), prior, tb,

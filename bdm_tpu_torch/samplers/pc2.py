@@ -9,7 +9,7 @@ reference (`point_cloud_model.model.*`, `feature_model.model.*`).
 
 Supported here: the released PC2 configuration (local colours and
 features, no mask, no global features, `raster_splat="multi"`, DDPM and
-DDIM windows, `precontract=False`).
+DDIM windows, `precontract=False`), sampling and the training loss.
 
 The model lives on the card unless the caller passes `device="cpu"`.
 """
@@ -17,7 +17,7 @@ The model lives on the card unless the caller passes `device="cpu"`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -29,6 +29,7 @@ from bdm_tpu_torch.diffusion import (DDIMScheduler, DDPMScheduler,
 from bdm_tpu_torch.models.feature_model import FeatureModel
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2)
+from bdm_tpu_torch.samplers.noise import TrainNoise
 
 
 def compute_dtype_of(mixed_precision: str) -> Optional[torch.dtype]:
@@ -85,10 +86,12 @@ class ProjectionConditioned(nn.Module):
         betas = linear_betas(cfg.beta_start, cfg.beta_end)
         self.schedulers = {"ddpm": DDPMScheduler(betas),
                            "ddim": DDIMScheduler(betas)}
+        self.num_train_timesteps = len(betas)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def conditioning_map(self, image: torch.Tensor) -> torch.Tensor:
-        """image (B, H, W, 3) in [0, 1] -> (B, H, W, 3 + D) float32."""
+        """image (B, H, W, 3) in [0, 1] -> (B, H, W, 3 + D) float32. The
+        feature model is frozen: no graph is built through it."""
         cfg = self.cfg
         colors = (image - cfg.colors_mean) / cfg.colors_std
         return torch.cat([colors, self.feature_model(image)], dim=-1)
@@ -106,19 +109,34 @@ class ProjectionConditioned(nn.Module):
                                   scale_factor=self.cfg.scale_factor)
         return torch.cat([x_t, proj.float()], dim=-1)
 
+    def noised_batch(self, batch: Dict[str, Any], noise: TrainNoise):
+        """What the eps-MSE losses share (`model.py:75-121`): x0 = points *
+        scale_factor, t uniform in [0, T), x_t = add_noise(x0), and x_t
+        with the conditioning map projected onto it
+        -> (x_t, [x_t | projection], t, the noise drawn)."""
+        x0 = batch["points"] * self.cfg.scale_factor
+        t, eps = noise.draw(x0.shape, self.num_train_timesteps)
+        x_t = self.schedulers["ddpm"].add_noise(x0, eps, t)
+        cond = self.prepare_cond(self.conditioning_map(batch["image"]))
+        return x_t, self.x_t_input(x_t, batch["camera"], cond), t, eps
+
 
 class PC2Model(ProjectionConditioned):
     def __init__(self, cfg: ProjectionConfig = ProjectionConfig(),
                  sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
-                 vit_kwargs: Optional[dict] = None, device=None):
+                 vit_kwargs: Optional[dict] = None, device=None,
+                 dropout: float = 0.1, width_multiplier: int = 1,
+                 voxel_resolution_multiplier: int = 1):
         device = resolve_device(device)
         super().__init__(cfg, vit_kwargs)
         self.point_cloud_model = _Holder(PVCNN2(
             out_channels=3, embed_dim=cfg.point_cloud_model_embed_dim,
             extra_feature_channels=self.in_channels - 3,
             sa_blocks=sa_blocks, fp_blocks=fp_blocks,
-            classifier_init_scale=1e-6, dtype=self.compute_dtype))
-        self.to(device)
+            classifier_init_scale=1e-6, dtype=self.compute_dtype,
+            dropout=dropout, width_multiplier=width_multiplier,
+            voxel_resolution_multiplier=voxel_resolution_multiplier))
+        self.to(device).eval()
 
     @property
     def backbone(self) -> PVCNN2:
@@ -129,11 +147,19 @@ class PC2Model(ProjectionConditioned):
         if hasattr(self.feature_model, "model"):
             self.feature_model.model.reset_parameters(seed + 1)
 
-    @torch.inference_mode()
     def denoise(self, x_t: torch.Tensor, t: torch.Tensor,
                 camera: PerspectiveCamera, cond: torch.Tensor) -> torch.Tensor:
-        """One eps prediction; t (B,) int."""
+        """One eps prediction; t (B,) int. Differentiable in the backbone's
+        parameters; the samplers call it under `inference_mode`."""
         return self.backbone(self.x_t_input(x_t, camera, cond), t)
+
+    # -------------------------------------------------------------- training
+    def loss(self, batch: Dict[str, Any], noise: TrainNoise) -> torch.Tensor:
+        """eps-MSE training loss (`model.py:75-121`) of one batch {"image":
+        (B, H, W, 3), "camera", "points": (B, N, 3)}; dropout follows the
+        module's mode (`train.make_train_step` switches it on)."""
+        _, x_in, t, eps = self.noised_batch(batch, noise)
+        return torch.mean((self.backbone(x_in, t) - eps) ** 2)
 
     # -------------------------------------------------------------- sampling
     @torch.inference_mode()

@@ -14,6 +14,7 @@ from bdm_tpu_torch import resolve_device
 from bdm_tpu_torch.diffusion import GaussianDiffusion, pvd_betas
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2)
+from bdm_tpu_torch.samplers.noise import TrainNoise
 from bdm_tpu_torch.samplers.pc2 import compute_dtype_of
 
 
@@ -24,20 +25,33 @@ class PVDModel(nn.Module):
                  beta_start: float = 1e-4, beta_end: float = 2e-2,
                  num_timesteps: int = 1000, sa_blocks=PVCNN_SA_BLOCKS,
                  fp_blocks=PVCNN_FP_BLOCKS, mixed_precision: str = "no",
-                 device=None):
+                 device=None, dropout: float = 0.1,
+                 width_multiplier: int = 1,
+                 voxel_resolution_multiplier: int = 1):
         device = resolve_device(device)
         super().__init__()
         self.model = PVCNN2(out_channels=3, embed_dim=embed_dim,
                             extra_feature_channels=0, use_att=use_att,
                             sa_blocks=sa_blocks, fp_blocks=fp_blocks,
                             classifier_init_scale=None,
-                            dtype=compute_dtype_of(mixed_precision))
+                            dtype=compute_dtype_of(mixed_precision),
+                            dropout=dropout,
+                            width_multiplier=width_multiplier,
+                            voxel_resolution_multiplier=(
+                                voxel_resolution_multiplier))
         self.diffusion = GaussianDiffusion(
             pvd_betas(beta_start, beta_end, num_timesteps))
-        self.to(device)
+        self.to(device).eval()
 
     def reset_parameters(self, seed: int = 0) -> None:
         self.model.reset_parameters(seed)
+
+    def loss(self, x0: torch.Tensor, noise: TrainNoise) -> torch.Tensor:
+        """eps-MSE training loss of clouds x0 (B, N, 3): t uniform in
+        [0, T), x_t = q_sample(x0), mean((eps_hat - eps)^2)."""
+        t, eps = noise.draw(x0.shape, self.diffusion.num_timesteps)
+        x_t = self.diffusion.q_sample(x0, t, eps)
+        return torch.mean((self.model(x_t, t) - eps) ** 2)
 
     @torch.inference_mode()
     def generate_window(self, x: torch.Tensor, start_time: int,

@@ -1,14 +1,18 @@
-"""Where one forward's time goes on the card: `torch.profiler` over a few
-PC2 denoise steps and fusion forwards at production shape.
+"""Where one step's time goes on the card: `torch.profiler` over a few
+PC2 denoise steps, fusion forwards and PC2 training steps at production
+shape.
 
     python -m bdm_tpu_torch.tools.profile_step
 
-B=8, N=4096, bf16, production widths, random weights from a seed. For each
-of the two forwards it prints one JSON line: the device time a step of
-every hand-written kernel and of PyTorch's own kernels together (self
-device time summed by kernel name), their launches a step, the host wall
-a step under the profiler, the busy share (device time / wall) and the
-card's name and power limit.
+B=8, N=4096, production widths, random weights from a seed; the forwards
+at bf16, the training step (forward, backward, clip, AdamW, EMA) in
+float32 and at bf16 compute. For each case it prints one JSON line: the
+device time a step of every hand-written kernel, of cuDNN's convolution
+kernels (the conv's backward) and of PyTorch's other kernels together
+(self device time summed by kernel name), their launches a step, the host
+wall a step under the profiler, the busy share (device time / wall), for
+a training step the peak memory, and the card's name and power limit. A
+last line times the attention's backward rule alone (CUDA events).
 """
 
 from __future__ import annotations
@@ -21,11 +25,17 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from bdm_tpu_torch.tools.standins import camera, production_models
+from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig, TrainNoise
+from bdm_tpu_torch.tools.standins import (camera, production_models,
+                                          training_batches)
+from bdm_tpu_torch.train import (create_train_state, make_optimizer,
+                                 make_train_step, pc2_freeze_mask)
 
 KERNELS = ("conv3d_kernel", "attention_kernel", "fps_kernel",
-           "scatter_mean_kernel", "ball_query_kernel", "three_nn_kernel",
-           "interp_kernel")
+           "scatter_mean_kernel", "scatter_sum_kernel", "ball_query_kernel",
+           "three_nn_kernel", "interp_kernel")
+# cuDNN's convolution kernels by the words their names carry
+CUDNN = ("cudnn", "wgrad", "dgrad", "xmma", "convolve", "implicit_gemm")
 STEPS = 3
 
 
@@ -40,14 +50,16 @@ def breakdown(call) -> dict:
             call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-    groups = {k: [0.0, 0] for k in (*KERNELS, "pytorch")}
+    groups = {k: [0.0, 0] for k in (*KERNELS, "cudnn_conv", "pytorch")}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
         # kernel rows only: an operator's row repeats its kernels' time
         if evt.device_type != DeviceType.CUDA or us <= 0:
             continue
-        name = next((k for k in KERNELS if k in evt.key), "pytorch")
+        name = next((k for k in KERNELS if k in evt.key), None) or (
+            "cudnn_conv" if any(w in evt.key.lower() for w in CUDNN)
+            else "pytorch")
         groups[name][0] += us / 1e3 / STEPS
         groups[name][1] += evt.count / STEPS
     device_ms = sum(ms for ms, _ in groups.values())
@@ -57,6 +69,39 @@ def breakdown(call) -> dict:
             "busy_share": device_ms / wall_ms,
             "ms": {k: v[0] for k, v in groups.items()},
             "launches": {k: v[1] for k, v in groups.items()}}
+
+
+def train_step_call(mixed_precision: str, b: int, n: int):
+    """-> a call that takes one PC2 training step (a new seeded batch each
+    time) with the reference optimizer and the EMA."""
+    pc2 = PC2Model(ProjectionConfig(mixed_precision=mixed_precision))
+    pc2.reset_parameters(0)
+    state = create_train_state(pc2, make_optimizer(pc2_freeze_mask(pc2)),
+                               use_ema=True)
+    step = make_train_step(pc2.loss)
+    batches = training_batches(5, b, n, "cuda")
+    noise = TrainNoise(0, "cuda")
+    return lambda: step(state, next(batches), noise)
+
+
+def attention_backward_ms(dtype) -> float:
+    """The attention's backward rule alone at the path's shape (B=8,
+    S=4096, C=64), median of 5 after warm-up."""
+    from bdm_tpu_torch.ops.cuda import attention
+    g = torch.Generator().manual_seed(3)
+    q, k, v = ((torch.randn(8, 4096, 64, generator=g) * 0.3).to(
+        "cuda", dtype).requires_grad_() for _ in range(3))
+    cot = torch.randn(8, 4096, 64, generator=g).to("cuda", dtype)
+    times = []
+    for _ in range(7):
+        out = attention.attention(q, k, v)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out.backward(cot)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times[2:])[2]
 
 
 def main() -> None:
@@ -74,13 +119,29 @@ def main() -> None:
     prior = (torch.randn(b, n, 3, generator=g) * 0.3).cuda()
     t = torch.full((b,), 500, dtype=torch.long, device="cuda")
     calls = {
-        "pc2_forward": lambda: pc2.denoise(x, t, cam, cond),
-        "fusion_forward": lambda: merge.predict(x, prior, 500, cam, cond,
-                                                "fusion_nstep"),
+        "pc2_forward": torch.inference_mode()(
+            lambda: pc2.denoise(x, t, cam, cond)),
+        "fusion_forward": torch.inference_mode()(
+            lambda: merge.predict(x, prior, 500, cam, cond, "fusion_nstep")),
     }
     for name, call in calls.items():
         print(json.dumps({"forward": name, "batch": b, "points": n,
                           **breakdown(call), "card": card}), flush=True)
+    del pc2, merge, calls, cond
+    for mp in ("no", "bf16"):
+        torch.cuda.empty_cache()
+        call = train_step_call(mp, b, n)
+        torch.cuda.reset_peak_memory_stats()
+        out = breakdown(call)
+        print(json.dumps({
+            "train_step": f"pc2_{mp}", "batch": b, "points": n, **out,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "card": card}), flush=True)
+        del call
+    print(json.dumps({"attention_backward_ms": {
+        "float32": attention_backward_ms(torch.float32),
+        "bfloat16": attention_backward_ms(torch.bfloat16)},
+        "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Seeded stand-ins for what the repository does not hold (the released
-checkpoints, a dataset view), shared by the measurement scripts."""
+checkpoints, a dataset view, training batches), shared by the measurement
+scripts."""
 
 from __future__ import annotations
 
@@ -42,3 +43,26 @@ def production_models(seed: int = 0):
     merge.init_from_pretrained(pc2, pvd, seed=seed + 2)
     live_zero_convs(merge, seed + 3)
     return pc2.eval(), pvd.eval(), merge.eval()
+
+
+def training_batches(seed: int, b: int, n: int, device, image_size: int = 224,
+                     repeat: bool = False):
+    """An endless iterator of model-form training batches {"image":
+    (B, S, S, 3) in [0, 1], "camera", "points": (B, N, 3)} made on the CPU
+    from `seed` and moved to `device`: points uniform on the unit sphere,
+    scaled to the half-unit extent of a normalised reference cloud. With
+    `repeat` every batch is the first one."""
+    g = torch.Generator().manual_seed(seed)
+    cam = camera(b, device)
+
+    def make():
+        p = torch.randn(b, n, 3, generator=g)
+        p = 0.5 * p / p.norm(dim=-1, keepdim=True)
+        image = torch.rand(b, image_size, image_size, 3, generator=g)
+        return {"image": image.to(device), "camera": cam,
+                "points": p.to(device)}
+
+    first = make()
+    yield first
+    while True:
+        yield first if repeat else make()

@@ -202,3 +202,26 @@ def load_into(module: nn.Module, state: Dict[str, np.ndarray]) -> None:
     module.load_state_dict({
         k: torch.tensor(np.asarray(v)).reshape(target[k].shape)
         for k, v in state.items()})
+
+
+def grads_state_dict(grads: Dict, specs: PVCNN2Specs,
+                     prefix: str = "point_cloud_model.model"
+                     ) -> Dict[str, np.ndarray]:
+    """A gradient tree of a PVCNN2 backbone (`jax.grad` gives the
+    parameters' structure; a PC2 tree's `point_cloud_model` is taken) ->
+    the names of the port's `named_parameters()`, so a test compares
+    `jax.grad` with `.grad` name by name. The layout rules are the
+    parameters': a gradient transposes as its weight does. `prefix` is
+    "point_cloud_model.model" for PC2, "model" for PVD."""
+    return pvcnn2_state_dict(grads.get("point_cloud_model", grads), specs,
+                             prefix)
+
+
+def fusion_grads_state_dict(grads: Dict, pc2_specs: PVCNN2Specs,
+                            pvd_specs: PVCNN2Specs,
+                            prefix: str = "fusion_model.model"
+                            ) -> Dict[str, np.ndarray]:
+    """As `grads_state_dict`, for a gradient tree of the fusion network
+    (or a merging tree, whose `fusion_model` is taken)."""
+    return fusion_state_dict(grads.get("fusion_model", grads), pc2_specs,
+                             pvd_specs, prefix)

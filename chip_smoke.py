@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of bdm_tpu_torch on one NVIDIA GPU: build the Hopper kernels,
-check each against its plain PyTorch version, then run the port's two
-sampling paths, BDM-Blending and BDM-Merging, at full model width.
+check each against its plain PyTorch version, forward and backward, then
+run the port's paths at full model width: BDM-Blending and BDM-Merging
+sampling, and training of PC2, PVD and the fusion network.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
-  a. every kernel against its plain version at the paths' shapes, float32
+Phases, in the order they run (any failure exits non-zero):
+  a. every kernel against its plain version at the paths' shapes (those
+     of PC2, PVD, the fusion network and PVD at twice the width), float32
      and bfloat16; indices exact, floats under a stated tolerance; median
      times of kernel, plain version and, where one PyTorch call computes
      the same function, that call (CUDA events, after warm-up); the least
      time the card could take for the same work (`bound_ms`);
+  a'. gradients: each differentiable wrapper forward through its kernel
+     and backward on the card, against forward and backward of its plain
+     version under PyTorch's own autograd on the card;
   d. tiny BDM-Blending and BDM-Merging runs through the kernels against
      the same runs on the CPU through the plain versions, same weights
      (the fusion zero-convs non-zero) and noise;
+  f. tiny PC2 training, three steps on the card through the kernels
+     against the same three steps on the CPU through the plain versions
+     (same weights, timesteps and noise, dropout 0);
   b. one PC2 denoise step and one fusion forward at B=8, N=4096, bf16,
      production widths, with the kernel launches of each;
   c. BDM-Blending end to end at production widths (PC2 with ViT-S/16 +
@@ -22,9 +30,19 @@ Phases (any failure exits non-zero):
   e. BDM-Merging end to end at production widths (PC2 + PVD + the fusion
      network initialised from them, zero-convs non-zero), B=2, N=4096,
      bf16, 50 DDPM steps, five interior milestones with roll step 2, so
-     each runs a one-step roll of both branches and a fusion step.
-In c and e every kernel must have launched and no plain version may have
-run on the card.
+     each runs a one-step roll of both branches and a fusion step;
+  g. PC2 training at production widths, B=8, N=4096, four steps of
+     `train_loop` (AdamW, clip 50, EMA) on a repeated seeded batch, in
+     float32 and then at bf16 compute;
+  h. PVD training at `width_multiplier=2`, B=4, N=2048, float32, two
+     steps (its 512 -> 512 conv at R=8), then one training step of the
+     fusion network at production widths, B=2, bf16, both towers frozen.
+In c, e, g and h every kernel of the path must have launched and no plain
+version may have run on the card. In the phases at production widths (b,
+c, e, g, h) every launch of the kernels whose shapes follow the model's
+widths (conv3d, attention, scatter_mean) notes its shape; the run fails
+if a path gave a kernel a shape that phase a did not hold against the
+plain version.
 
 Weights are random from a seed (the released checkpoints are not in the
 repository); throughput does not depend on them. The last line of standard
@@ -38,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -100,17 +119,53 @@ def bound(tensors, flops: float, kind: str) -> dict:
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+# The shapes the paths gave the kernels whose shapes follow the model's
+# widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N).
+SEEN = {"conv3d": set(), "attention": set(), "scatter_mean": set()}
+
+
+def record_shapes():
+    """From here on (the phases at production widths) every launch of
+    conv3d, attention and scatter_mean notes its shape in SEEN."""
+    from bdm_tpu_torch.ops.cuda import attention, conv3d, voxelize
+    keys = {
+        "conv3d": (conv3d, lambda x, w, b: (x.shape[-1], w.shape[0],
+                                            x.shape[1])),
+        "attention": (attention, lambda q, k, v: tuple(q.shape[1:])),
+        "scatter_mean": (voxelize, lambda f, order, ids_sorted, lo, r, *_:
+                         (f.shape[-1], r, f.shape[1])),
+    }
+    for name, (mod, key) in keys.items():
+        def noting(*args, _inner=mod._forward, _key=key, _name=name):
+            SEEN[_name].add(_key(*args))
+            return _inner(*args)
+        mod._forward = noting
+
+
+def check_shapes_covered(checked):
+    for name, seen in SEEN.items():
+        print(f"{name} shapes on the paths:", sorted(seen))
+        if not seen:
+            fail(f"no shape of {name} was noted on any path")
+        if seen - checked[name]:
+            fail(f"{name} ran on a path at {sorted(seen - checked[name])}, "
+                 f"which phase a did not hold against the plain version")
+
+
 # ------------------------------------------------------------ phase a
 
 def check_kernels(dev):
-    """-> {name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-    "library_ms"}} at production shapes, B=8. Operation counts: 8 flops a
-    squared distance plus the compares of the scan; 2 a multiply-add."""
+    """-> ({name: {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    "library_ms"}} at production shapes, B=8, and the shapes at which
+    conv3d, attention and scatter_mean were held against their plain
+    versions, keyed as SEEN). Operation counts: 8 flops a squared distance
+    plus the compares of the scan; 2 a multiply-add."""
     import torch
     import torch.nn.functional as F
     from bdm_tpu_torch import ops
     from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, fps,
-                                        interp, three_nn, voxelize)
+                                        interp, scatter_sum, three_nn,
+                                        voxelize)
 
     g = torch.Generator().manual_seed(SEED)
 
@@ -136,6 +191,22 @@ def check_kernels(dev):
         if not torch.equal(idx, fps.furthest_point_sample_plain(pts[n], m)):
             fail(f"fps differs at N={n}, M={m}")
         pts[m] = ops.gather(pts[n], idx).contiguous()
+    # the first level of a cloud of 2,048 points (PVD at twice the width)
+    pts[2048] = pts[4096][:, :2048].contiguous()
+    idx2 = fps.furthest_point_sample(pts[2048], 1024)
+    if not torch.equal(idx2, fps.furthest_point_sample_plain(pts[2048],
+                                                             1024)):
+        fail("fps differs at N=2048, M=1024")
+    half = ops.gather(pts[2048], idx2).contiguous()
+    if not torch.equal(ball_query.ball_query(half, pts[2048], 0.1, 32),
+                       ball_query.ball_query_plain(half, pts[2048], 0.1,
+                                                   32)):
+        fail("ball_query differs at N=2048, M=1024")
+    i, w = three_nn.three_nn(pts[2048], half)
+    pi, pw = three_nn.three_nn_plain(pts[2048], half)
+    if not torch.equal(i, pi):
+        fail("three_nn indices differ at N=2048, M=1024")
+    rel_err(w, pw, 1e-6, "three_nn weights N=2048")
     c0, p0 = pts[1024], pts[4096]
     res["fps"] = dict(
         max_abs_err=0.0,
@@ -214,25 +285,70 @@ def check_kernels(dev):
         # three multiply-adds a channel, not the one-hot product's 2*M
         **bound([i, w, f, out], b * n * c * 6, "f32"))
 
-    # voxel sites of PC2 + PVD: (C, R, N); 390 = PC2 stage-0 input
-    sites = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096), (96, 16, 1024),
+    # the backward of the blend at the same two stages: 3N float32 rows
+    # summed into M centres by the unsorted three-NN indices. The card's
+    # `index_add_` adds with atomics in an order that changes from run to
+    # run: 1e-5 of the largest sum; the CPU's adds in index order, as the
+    # kernel does
+    err = 0.0
+    by_shape = {}
+    for n, m, c in ((1024, 256, 256), (4096, 1024, 128)):
+        ids = nn[n][0].reshape(b, 3 * n).contiguous()
+        rows = randn(b, 3 * n, c)
+        sums = scatter_sum.scatter_sum(rows, ids, m)
+        err = max(err, rel_err(sums, scatter_sum.scatter_sum_plain(
+            rows, ids, m), 1e-5, f"scatter_sum N={3 * n} S={m} C={c}"))
+        on_cpu = scatter_sum.scatter_sum_plain(rows.cpu(), ids.cpu(), m)
+        print(f"scatter_sum N={3 * n} S={m} C={c}: equal to the CPU's "
+              f"index_add_ bit for bit: {torch.equal(sums.cpu(), on_cpu)}")
+        rb = rows.to(torch.bfloat16)
+        rel_err(scatter_sum.scatter_sum(rb, ids, m),
+                scatter_sum.scatter_sum_plain(rb, ids, m), 1e-5,
+                f"scatter_sum bf16 rows N={3 * n}")
+        by_shape[f"N{3 * n}_S{m}_C{c}"] = timed_ms(
+            lambda: scatter_sum.scatter_sum(rows, ids, m), inner=20)
+    sdst = (ids.long() + torch.arange(b, device=dev)[:, None] * m).reshape(-1)
+    flat_rows = rows.reshape(-1, c)
+    sacc = torch.empty((b * m, c), device=dev)
+    res["scatter_sum"] = dict(
+        max_abs_err=err, ms=by_shape["N12288_S1024_C128"],
+        ms_by_shape=by_shape,
+        timing="20 launches back to back behind a matmul",
+        plain_ms=timed_ms(lambda: scatter_sum.scatter_sum_plain(rows, ids,
+                                                                m)),
+        library_ms=timed_ms(
+            lambda: sacc.zero_().index_add_(0, sdst, flat_rows), inner=20),
+        # one add a feature
+        **bound([rows, ids, sums], rows.numel(), "f32"))
+
+    # voxel sites of PC2, PVD and the fusion network: (C, R, N); 390 = PC2
+    # stage-0 input; then those of PVD at twice the width on 2,048 points
+    sites = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096),
              (192, 8, 256), (256, 8, 64), (256, 8, 256), (128, 16, 1024),
-             (64, 32, 4096)]
+             (64, 32, 4096),
+             (3, 32, 2048), (64, 32, 2048), (128, 32, 2048), (192, 16, 1024),
+             (256, 16, 1024), (320, 8, 256), (512, 8, 64), (512, 8, 256)]
     ctxs = {}
     err = 0.0
     for c, r, n in sites:
         ctx = ctxs.setdefault((r, n), ops.make_voxel_context(pts[n], r))
+        # means and, with divide off, raw sums (the float32 unpadded
+        # contract of the TPU's `scatter_sum_sorted_pallas`)
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 8e-3)):
             f = randn(b, n, c, dtype=dt)
-            args = (f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, r, dt)
-            grid = voxelize.scatter_mean(*args)
-            err = max(err, rel_err(grid, voxelize.scatter_mean_plain(*args),
-                                   tol, f"scatter_mean C={c} R={r} {dt}"))
+            for divide in (True, False):
+                args = (f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, r, dt,
+                        divide)
+                grid = voxelize.scatter_mean(*args, ids=ctx.ids)
+                err = max(err, rel_err(
+                    grid, voxelize.scatter_mean_plain(*args), tol,
+                    f"scatter_mean C={c} R={r} {dt} divide={divide}"))
     f0 = randn(b, 4096, 390, dtype=torch.bfloat16)
     ctx0 = ctxs[(32, 4096)]
     vargs = (f0, ctx0.order, ctx0.ids_sorted, ctx0.voxel_lo, 32,
              torch.bfloat16)
-    grid0 = voxelize.scatter_mean(*vargs)
+    vmean = partial(voxelize.scatter_mean, ids=ctx0.ids)
+    grid0 = vmean(*vargs)
     # one PyTorch call: `index_add_` of the sorted, pre-divided rows into
     # a zeroed float32 grid
     cnt = torch.gather(ctx0.voxel_lo[:, 1:] - ctx0.voxel_lo[:, :-1], 1,
@@ -242,18 +358,45 @@ def check_kernels(dev):
     dst = (ctx0.ids_sorted.long()
            + torch.arange(b, device=dev)[:, None] * 32 ** 3).reshape(-1)
     acc = torch.empty((b * 32 ** 3, 390), device=dev)
+
+    def f32_site(c, divide):
+        """Times of the float32 unpadded store at R=32, N=4096: the shape
+        a float32 training step gives the last FP stage."""
+        f = randn(b, 4096, c)
+        a = (f, ctx0.order, ctx0.ids_sorted, ctx0.voxel_lo, 32,
+             torch.float32, divide)
+        out = vmean(*a)
+        src = torch.gather(f, 1, ctx0.order.long()[..., None].expand_as(f))
+        if divide:
+            src = src / cnt[..., None]
+        src = src.reshape(-1, c)
+        acc32 = torch.empty((b * 32 ** 3, c), device=dev)
+        return dict(
+            ms=timed_ms(lambda: vmean(*a)),
+            plain_ms=timed_ms(lambda: voxelize.scatter_mean_plain(*a)),
+            library_ms=timed_ms(lambda: acc32.zero_().index_add_(0, dst,
+                                                                 src)),
+            **bound([f, ctx0.order, ctx0.voxel_lo, out],
+                    b * 4096 * c * (2 if divide else 1), "f32"))
+
     res["scatter_mean"] = dict(
-        max_abs_err=err, ms=timed_ms(lambda: voxelize.scatter_mean(*vargs)),
+        f32_c64_r32_mean=f32_site(64, True),
+        f32_c64_r32_sum=f32_site(64, False),
+        max_abs_err=err, ms=timed_ms(lambda: vmean(*vargs)),
         plain_ms=timed_ms(lambda: voxelize.scatter_mean_plain(*vargs)),
         library_ms=timed_ms(lambda: acc.zero_().index_add_(0, dst, rows)),
         # a divide and an add a feature
         **bound([f0, ctx0.order, ctx0.voxel_lo, grid0], b * 4096 * 390 * 2,
                 "f32"))
 
-    # convs of PC2 + PVD: (Cin, Cout, R)
-    convs = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (96, 64, 16),
+    # convs of PC2, PVD and the fusion network: (Cin, Cout, R); an odd
+    # grid (R=9, the TPU's per-slab `conv3d_pallas`); those of PVD at twice
+    # the width, the widest of them Cin 512 (the TPU's unpadded `conv3d_mm`)
+    convs = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
              (64, 64, 16), (192, 128, 8), (128, 128, 8), (256, 256, 8),
-             (128, 128, 16), (64, 64, 32)]
+             (128, 128, 16), (64, 64, 32), (128, 128, 9),
+             (3, 64, 32), (128, 128, 32), (192, 128, 16), (256, 256, 16),
+             (320, 256, 8), (512, 512, 8)]
     err = 0.0
     for cin, cout, r in convs:
         wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
@@ -264,52 +407,69 @@ def check_kernels(dev):
                                    conv3d.conv3d_plain(x, wt, bias), tol,
                                    f"conv3d {cin}->{cout} R={r} {dt}"))
 
-    def conv_times(cin, cout, r):
-        """Kernel, plain and one-call (cuDNN, bf16, channels-last) times
-        and the bound of one bf16 conv; the one call must agree."""
-        x = randn(b, r, r, r, cin, dtype=torch.bfloat16)
+    def conv_times(cin, cout, r, dt=torch.bfloat16):
+        """Kernel, plain and one-call (cuDNN, channels-last, in the grid's
+        type; float32 without TF32) times and the bound of one conv; the
+        one call must agree."""
+        x = randn(b, r, r, r, cin, dtype=dt)
         wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
         bias = randn(cout, scale=0.1)
         y = conv3d.conv3d(x, wt, bias)
         xl = x.permute(0, 4, 1, 2, 3)
-        wl = wt.to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last_3d)
-        bl = bias.to(torch.bfloat16)
+        wl = wt.to(dt).contiguous(memory_format=torch.channels_last_3d)
+        bl = bias.to(dt)
+        bf16 = dt == torch.bfloat16
         rel_err(F.conv3d(xl, wl, bl, padding=1).permute(0, 2, 3, 4, 1), y,
-                2e-2, f"F.conv3d bf16 yardstick {cin}->{cout}")
+                2e-2 if bf16 else 1e-4,
+                f"F.conv3d {dt} yardstick {cin}->{cout}")
         return dict(
             ms=timed_ms(lambda: conv3d.conv3d(x, wt, bias)),
             plain_ms=timed_ms(lambda: conv3d.conv3d_plain(x, wt, bias)),
             library_ms=timed_ms(lambda: F.conv3d(xl, wl, bl, padding=1)),
             **bound([x, wt, bias, y], 2 * 27 * cin * cout * r ** 3 * b,
-                    "bf16"))
+                    "bf16" if bf16 else "f32"))
 
     # timed at PC2's wide stage-0 conv (the TPU's conv3d_mm) and at the
     # largest narrow one (conv3d_ms): the last FP stage's 64 -> 64, R 32
-    res["conv3d"] = dict(max_abs_err=err, **conv_times(390, 32, 32),
-                         narrow_64_64_r32=conv_times(64, 64, 32))
+    # and at the contracts of the TPU's other convs: a float32 grid, an
+    # odd resolution, an unpadded input wider than 256 channels
+    res["conv3d"] = dict(
+        max_abs_err=err, **conv_times(390, 32, 32),
+        narrow_64_64_r32=conv_times(64, 64, 32),
+        f32_64_64_r32=conv_times(64, 64, 32, torch.float32),
+        f32_128_128_r9=conv_times(128, 128, 9, torch.float32),
+        f32_512_512_r8=conv_times(512, 512, 8, torch.float32),
+        bf16_512_512_r8=conv_times(512, 512, 8))
 
-    err = 0.0
-    qkv = {}
-    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-        q, k, v = (randn(b, 4096, 64, scale=0.3, dtype=dt) for _ in range(3))
-        qkv[dt] = (q, k, v)
-        err = max(err, rel_err(attention.attention(q, k, v),
-                               attention.attention_plain(q, k, v), tol,
-                               f"attention {dt}"))
-    qb = qkv[torch.bfloat16]
-    ob = attention.attention(*qb)
-    # one PyTorch call: fused attention with the scale the layer uses (1)
-    qh = [t[:, None] for t in qb]
-    rel_err(F.scaled_dot_product_attention(*qh, scale=1.0)[:, 0], ob, 2e-2,
-            "scaled_dot_product_attention yardstick")
-    res["attention"] = dict(
-        max_abs_err=err, ms=timed_ms(lambda: attention.attention(*qb)),
-        plain_ms=timed_ms(lambda: attention.attention_plain(*qb)),
-        library_ms=timed_ms(
-            lambda: F.scaled_dot_product_attention(*qh, scale=1.0)),
-        # q k^T and p v: two products of 2 * S * S * C
-        **bound([*qb, ob], 4 * 4096 ** 2 * 64 * b, "bf16"))
+    # C 64 at the published widths, C 128 (the kernel's widest) in PVD at
+    # twice the width
+    attns = [(4096, 64), (4096, 128)]
+
+    def attn_times(s, c):
+        """Holds attention at (S, C) in both types; -> the bf16 times, the
+        one PyTorch call (fused attention with the scale the layer uses,
+        1) and the bound: q k^T and p v, two products of 2 * S * S * C."""
+        err = 0.0
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            qkv = [randn(b, s, c, scale=0.3, dtype=dt) for _ in range(3)]
+            err = max(err, rel_err(attention.attention(*qkv),
+                                   attention.attention_plain(*qkv), tol,
+                                   f"attention S={s} C={c} {dt}"))
+        out = attention.attention(*qkv)
+        heads = [t[:, None] for t in qkv]
+        rel_err(F.scaled_dot_product_attention(*heads, scale=1.0)[:, 0], out,
+                2e-2, "scaled_dot_product_attention yardstick")
+        return dict(
+            max_abs_err=err, ms=timed_ms(lambda: attention.attention(*qkv)),
+            plain_ms=timed_ms(lambda: attention.attention_plain(*qkv)),
+            library_ms=timed_ms(
+                lambda: F.scaled_dot_product_attention(*heads, scale=1.0)),
+            **bound([*qkv, out], 4 * s ** 2 * c * b, "bf16"))
+
+    wide = attn_times(4096, 128)
+    res["attention"] = dict(attn_times(4096, 64), s4096_c128=wide)
+    res["attention"]["max_abs_err"] = max(res["attention"]["max_abs_err"],
+                                          wide["max_abs_err"])
     for name, r in res.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -317,11 +477,95 @@ def check_kernels(dev):
               f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']})")
-    print("conv3d 64->64 R=32 bf16:",
-          json.dumps(res["conv3d"]["narrow_64_64_r32"]))
-    print("interp_mm by shape, ms:",
-          json.dumps(res["interp_mm"]["ms_by_shape"]))
-    return res
+    for name in ("conv3d", "scatter_mean", "attention"):
+        for key, val in res[name].items():
+            if isinstance(val, dict):
+                print(f"{name} {key}:", json.dumps(val))
+    for name in ("interp_mm", "scatter_sum"):
+        print(f"{name} by shape, ms:", json.dumps(res[name]["ms_by_shape"]))
+    return res, {"conv3d": set(convs), "attention": set(attns),
+                 "scatter_mean": set(sites)}
+
+
+def check_gradients(dev):
+    """Phase a': each differentiable wrapper forward through its kernel and
+    backward through its own rule, against its plain version under
+    PyTorch's autograd, all on the card at a shape of the training path.
+    Tolerances are relative to the largest entry of the plain gradient:
+    float32 1e-4 (sums in another order; PyTorch's backward of `gather`
+    and `index_add_` uses atomics, whose order changes from run to run),
+    bf16 1e-2 (a few bf16 roundings at other places: the plain attention
+    differentiates through float32 copies, the blend's plain backward
+    uses the bf16-rounded weights where the rule uses the float32 ones).
+    `scatter_sum` is the blend's backward, so that comparison holds it."""
+    import torch
+    from bdm_tpu_torch import ops
+    from bdm_tpu_torch.ops.cuda import (attention, conv3d, interp, three_nn,
+                                        voxelize)
+    g = torch.Generator().manual_seed(SEED + 7)
+    b = 8
+
+    def randn(*shape, scale=1.0, dtype=torch.float32, grad=True):
+        t = (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+        return t.requires_grad_(grad)
+
+    def compare(what, fn, plain, inputs, tol):
+        """Backward of sum(out * cotangent) through both versions."""
+        outs = []
+        for f in (fn, plain):
+            for t in inputs:
+                t.grad = None
+            out = f(*inputs)
+            if not outs:
+                cot = torch.randn(out.shape, generator=g).to(dev, out.dtype)
+            (out.float() * cot.float()).sum().backward()
+            outs.append([t.grad.clone() for t in inputs])
+        worst = 0.0
+        for i, (got, want) in enumerate(zip(*outs)):
+            if got.dtype != want.dtype or got.shape != want.shape:
+                fail(f"{what}: gradient {i} is {got.dtype} "
+                     f"{tuple(got.shape)}, plain {want.dtype}")
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            if not (scale > 0 and err <= tol * scale):
+                fail(f"{what}: gradient {i} max|err| {err} > {tol} * {scale}")
+            worst = max(worst, err / scale)
+        print(f"gradient {what}: max relative error {worst:.3e} "
+              f"(tolerance {tol})")
+
+    pts = randn(b, 4096, 3, scale=0.3, grad=False)
+    ctx = ops.make_voxel_context(pts, 32)
+    for divide in (True, False):
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            compare(
+                f"scatter_mean C=64 R=32 {dt} divide={divide}",
+                lambda f: voxelize.scatter_mean(
+                    f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 32, dt,
+                    divide, ids=ctx.ids),
+                lambda f: voxelize.scatter_mean_plain(
+                    f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 32, dt,
+                    divide),
+                [randn(b, 4096, 64, dtype=dt)], tol)
+    for (cin, cout, r), dt, tol in (((64, 64, 32), torch.float32, 1e-4),
+                                    ((64, 64, 32), torch.bfloat16, 1e-2),
+                                    ((512, 512, 8), torch.float32, 1e-4)):
+        compare(f"conv3d {cin}->{cout} R={r} {dt}", conv3d.conv3d,
+                conv3d.conv3d_plain,
+                [randn(b, r, r, r, cin, dtype=dt),
+                 randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5),
+                 randn(cout, scale=0.1)], tol)
+    for c in (64, 128):
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            compare(f"attention S=4096 C={c} {dt}", attention.attention,
+                    attention.attention_plain,
+                    [randn(b, 4096, c, scale=0.3, dtype=dt)
+                     for _ in range(3)], tol)
+    centers = ops.gather(pts, ops.furthest_point_sample(pts, 1024))
+    idx, w = three_nn.three_nn(pts, centers.contiguous())
+    compare("interp_mm N=4096 M=1024 C=128 bf16",
+            lambda f: interp.interp_mm(idx, w, f),
+            lambda f: interp.interp_mm_plain(idx, w, f),
+            [randn(b, 1024, 128, dtype=torch.bfloat16)], 1e-2)
 
 
 # ------------------------------------------------------------ models
@@ -349,23 +593,29 @@ class _CpuNoise:
         return self.inner.fuse(i, shape).to(self.device)
 
 
+TINY_SA = (((8, 2, 4), (16, 0.3, 8, (8, 16))),
+           ((16, 2, 4), (8, 0.4, 8, (16, 32))),
+           (None, (4, 0.8, 8, (32, 64))))
+TINY_FP = (((32, 32), (16, 1, 4)), ((16, 16), (16, 1, 4)),
+           ((16, 8), (8, 1, 4)))
+
+
+def tiny_config():
+    from bdm_tpu_torch.samplers import ProjectionConfig
+    return ProjectionConfig(image_size=16, image_feature_model="identity",
+                            raster_point_radius=0.3,
+                            point_cloud_model_embed_dim=8)
+
+
 def tiny_parity(dev):
     """Phase d: tiny BDM-Blending and BDM-Merging on the card (kernels) vs
     on the CPU (plain versions); 1e-3 absolute, as the CPU tests hold the
     port to the JAX reference."""
     import torch
-    from bdm_tpu_torch.samplers import (BDMMergingModel, PC2Model,
-                                        ProjectionConfig, PVDModel,
+    from bdm_tpu_torch.samplers import (BDMMergingModel, PC2Model, PVDModel,
                                         bdm_blending, bdm_merging)
     from bdm_tpu_torch.tools.standins import camera, live_zero_convs
-    sa = (((8, 2, 4), (16, 0.3, 8, (8, 16))),
-          ((16, 2, 4), (8, 0.4, 8, (16, 32))),
-          (None, (4, 0.8, 8, (32, 64))))
-    fp = (((32, 32), (16, 1, 4)), ((16, 16), (16, 1, 4)),
-          ((16, 8), (8, 1, 4)))
-    cfg = ProjectionConfig(image_size=16, image_feature_model="identity",
-                           raster_point_radius=0.3,
-                           point_cloud_model_embed_dim=8)
+    sa, fp, cfg = TINY_SA, TINY_FP, tiny_config()
     outs = {"BDM-B": [], "BDM-M": []}
     image = torch.rand(2, 16, 16, 3,
                        generator=torch.Generator().manual_seed(1))
@@ -396,6 +646,43 @@ def tiny_parity(dev):
             fail(f"tiny {name} on the card differs from the CPU run: {err}")
 
 
+def tiny_training(dev):
+    """Phase f: three training steps of a tiny PC2 (a visible head, dropout
+    0) on the card through the kernels against the same steps on the CPU
+    through the plain versions: same weights, batch, timesteps and noise.
+    Losses within 1e-3 relative (float32 sums in another order through
+    three optimizer steps)."""
+    import torch
+    from bdm_tpu_torch.samplers import PC2Model, TrainNoise
+    from bdm_tpu_torch.tools.standins import training_batches
+    from bdm_tpu_torch.train import (create_train_state, make_optimizer,
+                                     make_train_step, pc2_freeze_mask)
+    g = torch.Generator().manual_seed(SEED + 6)
+    draws = [(torch.randint(0, 1000, (2,), generator=g),
+              torch.randn(2, 64, 3, generator=g)) for _ in range(3)]
+    losses = []
+    for d in ("cpu", dev):
+        pc2 = PC2Model(tiny_config(), TINY_SA, TINY_FP, device=d, dropout=0.0)
+        pc2.reset_parameters(SEED)
+        with torch.no_grad():
+            head = pc2.backbone.classifier[2].weight
+            head.copy_(torch.randn(
+                head.shape, generator=torch.Generator().manual_seed(5)) * 0.1)
+        state = create_train_state(
+            pc2, make_optimizer(pc2_freeze_mask(pc2)), use_ema=True)
+        step = make_train_step(pc2.loss)
+        noise = TrainNoise(device=d, replay=draws)
+        batches = training_batches(SEED + 1, 2, 64, d, image_size=16)
+        losses.append([float(step(state, next(batches), noise)["loss"])
+                       for _ in range(3)])
+    print(f"tiny PC2 training, losses on the CPU {losses[0]}, on the card "
+          f"{losses[1]}")
+    for cpu, card in zip(*losses):
+        if not abs(cpu - card) <= 1e-3 * abs(cpu):
+            fail(f"tiny training on the card differs from the CPU: "
+                 f"{losses}")
+
+
 def forwards(pc2, merge, dev):
     """Phase b: one PC2 denoise step and one fusion forward, B=8, N=4096,
     bf16: host clock around a synchronised call, median after warm-up, and
@@ -423,7 +710,8 @@ def forwards(pc2, merge, dev):
             torch.cuda.synchronize()
             kernels.reset_counts()
             t0 = time.perf_counter()
-            eps = call()
+            with torch.inference_mode():
+                eps = call()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         if eps.shape != (b, n, 3) or not torch.isfinite(eps).all():
@@ -461,12 +749,217 @@ def sampler_path(name, run, milestones, roll_step, dev):
     print("launch counts (kernel, plain on CUDA):", json.dumps(counts))
     if out.shape != (b, n, 3) or not torch.isfinite(out).all():
         fail(f"{name} output {tuple(out.shape)} not finite")
+    # sampling differentiates nothing: the blend's backward kernel rests
+    return check_path(name, counts, ("scatter_sum",)), wall
+
+
+def check_path(name, counts, unused=()):
+    """Every kernel launched on the path but those in `unused`, which
+    launched no time; no plain version ran on the card."""
     for kernel, (launches, plain) in counts.items():
-        if launches <= 0:
-            fail(f"kernel {kernel} never launched on the {name} path")
+        if (launches <= 0) != (kernel in unused):
+            fail(f"kernel {kernel} launched {launches} times on the {name} "
+                 f"path")
         if plain != 0:
-            fail(f"plain version of {kernel} ran on the card {plain} times")
-    return {k: v[0] for k, v in counts.items()}, wall
+            fail(f"plain version of {kernel} ran on the card {plain} times "
+                 f"on the {name} path")
+    return {k: v[0] for k, v in counts.items()}
+
+
+def run_training(name, model, loss_fn, batches, noise, steps):
+    """`steps` steps of `train_loop` with the reference optimizer (AdamW
+    lr 1e-3, betas (0.95, 0.999), weight decay 1e-6, clip 50) and the EMA;
+    -> (launch counts, losses, median step ms after the first step, peak
+    GiB, the state)."""
+    import torch
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.train import (create_train_state, make_optimizer,
+                                     train_loop)
+    state = create_train_state(model, make_optimizer(model), use_ema=True,
+                               ema_update_every=2)
+    marks, losses = [], []
+
+    def clock(step, state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    marks.append(time.perf_counter())
+    train_loop(state, loss_fn, batches, steps, noise, callbacks=[clock],
+               log_step_freq=1, print_freq=10 ** 9)
+    counts = kernels.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
+    print(f"{name}: {steps} steps, losses {losses}, step ms {step_ms} "
+          f"(median after the first {ms:.2f}), peak memory {peak:.3f} GiB")
+    print("launch counts (kernel, plain on CUDA):", json.dumps(counts))
+    if state.step != steps or not all(x == x and abs(x) < 1e30
+                                      for x in losses):
+        fail(f"{name}: losses {losses} after {state.step} steps")
+    if all(torch.equal(e, p.detach()) for e, p in zip(
+            state.ema.values(), model.parameters()) if p.requires_grad):
+        fail(f"{name}: the EMA equals the trained parameters")
+    return counts, losses, ms, peak, state
+
+
+def watch_gates(model):
+    """-> {module name: 0-d bool tensor}, refreshed at every forward that
+    builds a graph: whether the ReLU of that squeeze-excitation gate was
+    dead, that is, no hidden unit was positive for any sample (the
+    pre-activation recomputed as `SE.forward` computes it). Behind a dead
+    ReLU both matrices of the gate have a gradient of exactly zero."""
+    import torch
+    import torch.nn.functional as F
+    from bdm_tpu_torch.models.layers import SE
+    dead = {}
+
+    def note(name, gate, args, out):
+        if torch.is_grad_enabled():
+            dt = gate.dtype or torch.float32
+            with torch.no_grad():
+                s = args[0].float().mean(dim=(1, 2, 3)).to(dt)
+                dead[name] = (F.linear(s, gate.fc[0].weight.to(dt)) <= 0).all()
+
+    for name, module in model.named_modules():
+        if isinstance(module, SE):
+            module.register_forward_hook(partial(note, name))
+    return dead
+
+
+def check_gradients_reached(name, model, dead):
+    """Every trainable parameter has a finite, non-zero gradient after the
+    last step, but for the matrices of a squeeze-excitation gate whose
+    ReLU `watch_gates` saw dead in that step; -> how many those are."""
+    import torch
+    behind_dead = 0
+    for k, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"{name}: no finite gradient for {k}")
+        if not p.grad.abs().sum() > 0:
+            gate = k.rsplit(".fc.", 1)[0]
+            if not (gate in dead and bool(dead[gate])):
+                fail(f"{name}: zero gradient for {k}")
+            behind_dead += 1
+    print(f"{name}: every trainable parameter has a non-zero gradient, but "
+          f"{behind_dead} matrices of squeeze-excitation gates whose ReLU "
+          f"was dead in that step ({sum(bool(d) for d in dead.values())} "
+          f"of {len(dead)} gates)")
+    return behind_dead
+
+
+def pc2_training(dev, mixed_precision, steps=4):
+    """Phase g: PC2 at production widths, B=8, N=4096, `steps` steps of
+    `train_loop` on one repeated batch with one repeated draw of timesteps
+    and noise, so the loss of that batch must fall. Float32 takes the
+    gather form of the blend (no `interp_mm`, hence no `scatter_sum`); at
+    bf16 compute all eight kernels launch, `scatter_sum` twice a step (the
+    backward of the two bf16 FP stages)."""
+    import itertools
+
+    import torch
+    from bdm_tpu_torch.samplers import (PC2Model, ProjectionConfig,
+                                        TrainNoise)
+    from bdm_tpu_torch.tools.standins import training_batches
+    from bdm_tpu_torch.train import pc2_freeze_mask
+    name = f"PC2 training {mixed_precision}"
+    b, n = 8, 4096
+    pc2 = PC2Model(ProjectionConfig(mixed_precision=mixed_precision))
+    pc2.reset_parameters(SEED)
+    pc2_freeze_mask(pc2)
+    dead = watch_gates(pc2)
+    vit = {k: v.clone() for k, v in pc2.feature_model.state_dict().items()}
+    g = torch.Generator().manual_seed(SEED + 8)
+    draw = (torch.randint(0, 1000, (b,), generator=g),
+            torch.randn(b, n, 3, generator=g))
+    noise = TrainNoise(device=dev, replay=itertools.repeat(draw))
+    batches = training_batches(SEED + 5, b, n, dev, repeat=True)
+    batch = next(batches)
+    with torch.no_grad():
+        before = float(pc2.loss(batch, noise))
+    counts, losses, ms, peak, state = run_training(
+        name, pc2, pc2.loss, batches, noise, steps)
+    with torch.no_grad():
+        after = float(pc2.loss(batch, noise))
+    print(f"{name}: loss of the repeated batch without dropout {before} -> "
+          f"{after}")
+    if not after < before:
+        fail(f"{name}: the loss of the repeated batch did not fall")
+    behind_dead = check_gradients_reached(name, pc2, dead)
+    for k, v in pc2.feature_model.state_dict().items():
+        if not torch.equal(v, vit[k]):
+            fail(f"{name}: the frozen feature model moved at {k}")
+    f32 = mixed_precision == "no"
+    launches = check_path(name, counts,
+                          ("interp_mm", "scatter_sum") if f32 else ())
+    if not f32 and launches["scatter_sum"] != 2 * steps:
+        fail(f"{name}: scatter_sum launched {launches['scatter_sum']} times "
+             f"in {steps} steps")
+    print(f"{name}: launches a step",
+          json.dumps({k: v / steps for k, v in launches.items()}))
+    return dict(launches=launches, step_ms=ms, peak_gib=peak, losses=losses,
+                zero_gradients_behind_dead_gates=behind_dead)
+
+
+def wide_and_fusion_training(merge, dev):
+    """Phase h: PVD at twice the width, B=4, N=2048, float32, two steps
+    (the conv shapes noted must hold its Cin 512 -> 512 at R=8, unpadded);
+    then one step of the fusion network's loss at production widths, B=2,
+    N=4096, bf16, the feature model and both towers frozen."""
+    import itertools
+
+    import torch
+    from bdm_tpu_torch.samplers import PVDModel, TrainNoise
+    from bdm_tpu_torch.tools.standins import training_batches
+    from bdm_tpu_torch.train import fusion_freeze_mask
+    pvd = PVDModel(width_multiplier=2)
+    pvd.reset_parameters(SEED + 1)
+    dead = watch_gates(pvd)
+    before = {k: set(v) for k, v in SEEN.items()}
+    counts, _, ms, peak, _ = run_training(
+        "PVD x2 training float32", pvd,
+        lambda batch, noise: pvd.loss(batch["points"], noise),
+        training_batches(SEED + 9, 4, 2048, dev, image_size=16),
+        TrainNoise(SEED, dev), 2)
+    print("PVD x2 shapes no earlier path had:", json.dumps(
+        {k: sorted(v - before[k]) for k, v in SEEN.items()}))
+    if (512, 512, 8) not in SEEN["conv3d"] - before["conv3d"]:
+        fail("PVD x2 never ran its 512 -> 512 conv at R=8")
+    if (4096, 128) not in SEEN["attention"]:
+        fail("PVD x2 never ran its attention at C=128")
+    behind_dead = check_gradients_reached("PVD x2", pvd, dead)
+    out = {"pvd_x2": dict(
+        launches=check_path("PVD x2", counts, ("interp_mm", "scatter_sum")),
+        step_ms=ms, peak_gib=peak,
+        zero_gradients_behind_dead_gates=behind_dead)}
+    del pvd
+
+    fusion_freeze_mask(merge)
+    frozen = {k: p.detach().clone() for k, p in merge.named_parameters()
+              if not p.requires_grad}
+    moving = {k: p.detach().clone() for k, p in merge.named_parameters()
+              if p.requires_grad}
+    counts, _, ms, peak, _ = run_training(
+        "fusion training bf16", merge, merge.loss,
+        training_batches(SEED + 10, 2, 4096, dev), TrainNoise(SEED + 1, dev),
+        1)
+    params = dict(merge.named_parameters())
+    if not any("pvd_model_sa_layers" in k for k in frozen) or not all(
+            torch.equal(params[k], v) for k, v in frozen.items()):
+        fail("fusion training moved a frozen tower")
+    moved = sum(not torch.equal(params[k], v) for k, v in moving.items())
+    print(f"fusion training: {len(frozen)} frozen tensors unchanged, "
+          f"{moved} of {len(moving)} trainable tensors moved")
+    if moved == 0:
+        fail("fusion training moved nothing")
+    out["fusion"] = dict(launches=check_path("fusion training", counts),
+                         step_ms=ms, peak_gib=peak)
+    return out
 
 
 def main() -> int:
@@ -482,8 +975,6 @@ def main() -> int:
     # the plain versions serve as references: no TF32 in them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from functools import partial
-
     from bdm_tpu_torch.ops import cuda as kernels
     from bdm_tpu_torch.samplers import bdm_blending, bdm_merging
     from bdm_tpu_torch.tools.standins import production_models
@@ -495,8 +986,11 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
 
-    res = check_kernels(dev)
+    res, checked = check_kernels(dev)
+    check_gradients(dev)
     tiny_parity(dev)
+    tiny_training(dev)
+    record_shapes()
     pc2, pvd, merge = production_models(SEED)
     fwd = forwards(pc2, merge, dev)
     blend, blend_wall = sampler_path(
@@ -505,21 +999,35 @@ def main() -> int:
     merged, merge_wall = sampler_path(
         "BDM-M", partial(bdm_merging, merge, pc2, pvd),
         [50, 46, 42, 38, 12, 8, 4, 0], 2, dev)
+    del pc2, pvd
+    torch.cuda.empty_cache()
+    train = {"pc2_f32": pc2_training(dev, "no"),
+             "pc2_bf16": pc2_training(dev, "bf16")}
+    torch.cuda.empty_cache()
+    train.update(wide_and_fusion_training(merge, dev))
+    check_shapes_covered(checked)
+    by_path = dict(bdm_blending=blend, bdm_merging=merged,
+                   **{k: v["launches"] for k, v in train.items()})
 
     rows = []
     for name, (mod, source, replaces) in kernels.KERNELS.items():
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=blend[name],   # BDM-Blending's, as before BDM-Merging
+            # of this slice's main path, the four bf16 training steps of
+            # PC2, where all eight launch; every path's own count follows
+            launches=by_path["pc2_bf16"][name],
             launches_by_path=dict(
-                bdm_blending=blend[name], bdm_merging=merged[name],
+                {k: v[name] for k, v in by_path.items()},
                 pc2_forward=fwd["pc2_forward"]["launches"][name],
                 fusion_forward=fwd["fusion_forward"]["launches"][name]),
             **res[name]))
     print(json.dumps({"denoise_step_ms": fwd["pc2_forward"]["ms"],
                       "fusion_forward_ms": fwd["fusion_forward"]["ms"],
                       "bdm_b_wall_s": blend_wall,
-                      "bdm_m_wall_s": merge_wall}))
+                      "bdm_m_wall_s": merge_wall,
+                      "training": {k: {m: v[m] for m in v
+                                       if m not in ("launches", "losses")}
+                                   for k, v in train.items()}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

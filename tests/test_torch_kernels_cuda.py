@@ -1,4 +1,4 @@
-"""The seven Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
+"""The eight Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
 versions, on the card. Without a CUDA device every test here skips (a
 CUDA kernel has no CPU mode). This file imports torch only, so it also
 runs where JAX is not installed:
@@ -10,7 +10,11 @@ Tolerances: indices exact; float32 results 1e-5 of the largest value
 attention); bfloat16 outputs 1e-2 of the largest value (one bfloat16
 rounding of sums that differ in their last float32 bits); the bf16
 three-neighbour blend 4e-3 (one bfloat16 ulp: its float32 sums are the
-plain version's bit for bit, an FMA of an exact product rounds the same).
+plain version's bit for bit, an FMA of an exact product rounds the same);
+the unsorted segment sum 1e-5 against the card's `index_add_` (atomics, an
+order that changes from run to run) and bit for bit against the CPU's
+(index order, the kernel's own); gradients 1e-4 (float32) against the plain
+versions under PyTorch's autograd.
 """
 
 import pytest
@@ -20,7 +24,8 @@ from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
                                     conv3d as k_conv, fps as k_fps,
-                                    interp as k_interp, three_nn as k_tnn,
+                                    interp as k_interp,
+                                    scatter_sum as k_ss, three_nn as k_tnn,
                                     voxelize as k_vox)
 
 pytestmark = pytest.mark.cuda
@@ -66,7 +71,7 @@ def test_scatter_conv_attention(dev, dtype):
     ctx = ops.make_voxel_context(x, 8)
     f = _cloud(dev, 2, 1024, 40, seed=2).to(dtype)
     args = (f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 8, dtype)
-    grid = k_vox.scatter_mean(*args)
+    grid = k_vox.scatter_mean(*args, ids=ctx.ids)
     assert grid.dtype == dtype
     assert _rel(grid, k_vox.scatter_mean_plain(*args)) < tol
     wt = _cloud(dev, 16, 40, 3, 3, 3, seed=3) * 0.05
@@ -99,3 +104,73 @@ def test_launch_counters(dev):
     k_fps.furthest_point_sample(x, 16)
     k_fps.furthest_point_sample_plain(x, 16)
     assert kernels.counts()["fps"] == (1, 1)
+
+
+@pytest.mark.parametrize("n,s,c,dtype", [
+    (3072, 256, 256, torch.float32), (1500, 100, 40, torch.float32),
+    (5000, 64, 300, torch.float32), (3072, 256, 256, torch.bfloat16)],
+    ids=["path", "ragged", "wide-two-passes", "bf16-rows"])
+def test_scatter_sum(dev, n, s, c, dtype):
+    f = _cloud(dev, 2, n, c, seed=9).to(dtype)
+    ids = torch.randint(0, s, (2, n), generator=torch.Generator()
+                        .manual_seed(10)).to(dev, torch.int32)
+    ids[:, :50] = 7                       # a crowded segment
+    ids[ids == 3] = 4                     # and an empty one
+    out = k_ss.scatter_sum(f, ids, s)
+    assert out.dtype == torch.float32 and out.shape == (2, s, c)
+    assert not out[:, 3].any()
+    assert _rel(out, k_ss.scatter_sum_plain(f, ids, s)) < 1e-5
+    assert torch.equal(out.cpu(),
+                       k_ss.scatter_sum_plain(f.cpu(), ids.cpu(), s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_raw_sums(dev, dtype):
+    """`divide=False`: the raw-sum store, the means times the counts."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    x = _cloud(dev, 2, 1024, 3, seed=1)
+    ctx = ops.make_voxel_context(x, 8)
+    f = _cloud(dev, 2, 1024, 40, seed=2).to(dtype)
+    args = (f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 8, torch.float32)
+    sums = k_vox.scatter_mean(*args, divide=False, ids=ctx.ids)
+    assert _rel(sums, k_vox.scatter_mean_plain(*args, divide=False)) < tol
+    counts = (ctx.voxel_lo[:, 1:] - ctx.voxel_lo[:, :-1]).reshape(2, 8, 8, 8)
+    assert _rel(sums, k_vox.scatter_mean(*args, ids=ctx.ids)
+                * counts[..., None]) < tol
+
+
+def test_gradients_through_the_kernels(dev):
+    """Forward through each kernel, backward through its rule, against the
+    plain version under autograd; the blend's backward launches
+    `scatter_sum`."""
+    x = _cloud(dev, 2, 1024, 3, seed=1)
+    ctx = ops.make_voxel_context(x, 8)
+    wt = (_cloud(dev, 16, 40, 3, 3, 3, seed=3) * 0.05).requires_grad_()
+    bias = _cloud(dev, 16, seed=4).requires_grad_()
+    f = _cloud(dev, 2, 1024, 40, seed=2).requires_grad_()
+    q = (_cloud(dev, 2, 2048, 16, seed=5) * 0.3).requires_grad_()
+    grads = []
+    for kernel in (True, False):
+        for t in (f, wt, bias, q):
+            t.grad = None
+        a = (f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 8, torch.float32)
+        if kernel:
+            g = k_conv.conv3d(k_vox.scatter_mean(*a, ids=ctx.ids), wt, bias)
+            o = k_attn.attention(q, q, q)
+        else:
+            g = k_conv.conv3d_plain(k_vox.scatter_mean_plain(*a), wt, bias)
+            o = k_attn.attention_plain(q, q, q)
+        (g.square().sum() + o.square().sum()).backward()
+        grads.append([t.grad.clone() for t in (f, wt, bias, q)])
+    for got, want in zip(*grads):
+        assert _rel(got, want) < 1e-4
+    ctr = _cloud(dev, 2, 256, 3, seed=7)
+    idx, w = k_tnn.three_nn(x, ctr)
+    fb = _cloud(dev, 2, 256, 64, seed=8).to(torch.bfloat16).requires_grad_()
+    kernels.reset_counts()
+    k_interp.interp_mm(idx, w, fb).float().square().sum().backward()
+    got = fb.grad.clone()
+    assert kernels.counts()["scatter_sum"] == (1, 0)
+    fb.grad = None
+    k_interp.interp_mm_plain(idx, w, fb).float().square().sum().backward()
+    assert got.dtype == torch.bfloat16 and _rel(got, fb.grad) < 1e-2

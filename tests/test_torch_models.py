@@ -16,9 +16,11 @@ import torch
 
 from bdm_tpu.models import feature_model as jfm
 from bdm_tpu.models.pvcnn import PVCNN2 as JaxPVCNN2
+from bdm_tpu.models.pvcnn import build_pvcnn2_specs as jax_build_specs
 from bdm_tpu.utils import convert_torch as CT
 from bdm_tpu_torch.models.feature_model import FeatureModel
-from bdm_tpu_torch.models.pvcnn import PVCNN2
+from bdm_tpu_torch.models.fusion import PVCNNFuse
+from bdm_tpu_torch.models.pvcnn import PVCNN2, PVConv, build_pvcnn2_specs
 from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig, PVDModel
 from bdm_tpu_torch.utils import convert_jax as CJ
 from tests.test_models import TINY_FP, TINY_SA
@@ -61,6 +63,100 @@ def test_pvcnn2_tiny_parity(extra):
     scale = np.abs(want).max()
     assert np.abs(got - want).max() < 1e-4 * scale, (
         np.abs(got - want).max(), scale)
+
+
+@pytest.mark.parametrize("width,res", [(1, 1), (2, 1), (1, 2)])
+@pytest.mark.parametrize("extra", [387, 0], ids=["pc2", "pvd"])
+def test_specs_match_jax(extra, width, res):
+    """The channel accounting with both multipliers, field by field, at
+    the published blocks."""
+    import dataclasses
+    want = jax_build_specs(extra_feature_channels=extra,
+                           width_multiplier=width,
+                           voxel_resolution_multiplier=res)
+    got = build_pvcnn2_specs(extra_feature_channels=extra,
+                             width_multiplier=width,
+                             voxel_resolution_multiplier=res)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.channels_sa_features == 512 * width
+    assert got.sa_stages[0].convs[0].resolution == 32 * res
+    if width == 2:   # the conv wider than 256 the TPU sends to conv3d_mm
+        assert got.fp_stages[0].convs[0].out_channels == 512
+
+
+def test_pvcnn2_wide_parity():
+    """`width_multiplier=2` and `voxel_resolution_multiplier=2` through the
+    whole network against the JAX one, same tolerance as the plain tiny
+    network."""
+    kw = dict(out_channels=3, embed_dim=8, extra_feature_channels=0,
+              sa_blocks=TINY_SA, fp_blocks=TINY_FP, width_multiplier=2,
+              voxel_resolution_multiplier=2)
+    jm = JaxPVCNN2(classifier_init_scale=None, **kw)
+    rng = np.random.default_rng(13)
+    x = (rng.standard_normal((2, 64, 3)) * 0.5).astype(np.float32)
+    t = np.array([517, 3], np.int32)
+    params = _np_tree(jax.jit(jm.init)(jax.random.PRNGKey(13),
+                                       jnp.asarray(x), jnp.asarray(t)))
+    want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x),
+                                       jnp.asarray(t)))
+    tm = PVCNN2(classifier_init_scale=None, **kw)
+    assert (tm.specs.sa_stages[0].convs[0].resolution
+            == jm.specs().sa_stages[0].convs[0].resolution == 8)
+    CJ.load_into(tm, CJ.pvcnn2_state_dict(params, tm.specs))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), torch.from_numpy(t).long()).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() < 1e-4 * scale
+
+
+def test_dropout_layers():
+    """Both dropouts of the reference (p = 0.1, after the first voxel conv
+    and before the head) run in `train()` with the rate and the 1/(1-p)
+    scaling, and are the identity in `eval()`, the mode every model leaves
+    its constructor in; the state_dict has no key for them."""
+    kw = dict(out_channels=3, embed_dim=8, extra_feature_channels=5,
+              sa_blocks=TINY_SA, fp_blocks=TINY_FP)
+    tm = PVCNN2(**kw)
+    fuse = PVCNNFuse(**kw)
+    pvd = PVDModel(embed_dim=8, sa_blocks=TINY_SA, fp_blocks=TINY_FP,
+                   device="cpu")
+    assert not tm.training and not fuse.training and not pvd.training
+    drops = [m for m in tm.modules() if isinstance(m, torch.nn.Dropout)]
+    n_convs = sum(isinstance(m, PVConv) for m in tm.modules())
+    assert len(drops) == n_convs + 1 and all(d.p == 0.1 for d in drops)
+    assert all(d.p == 0.25 for d in PVCNN2(dropout=0.25, **kw).modules()
+               if isinstance(d, torch.nn.Dropout))
+    assert not any("voxel_layers.3" in k or "classifier.1" in k
+                   for k in tm.state_dict())
+    tm.reset_parameters(0)
+    with torch.no_grad():
+        tm.classifier[2].weight.normal_(
+            0, 0.1, generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.standard_normal((2, 64, 8)) * 0.5).astype(
+        np.float32))
+    t = torch.tensor([517, 3])
+    with torch.no_grad():
+        a, b = tm(x, t), tm(x, t)
+        assert torch.equal(a, b)                    # eval: no randomness
+        tm.train()
+        torch.manual_seed(0)
+        c = tm(x, t)
+        torch.manual_seed(1)
+        d = tm(x, t)
+        tm.eval()
+    assert not torch.equal(c, d) and not torch.equal(c, a)
+    # the layers themselves: rate and scaling
+    conv = next(m for m in tm.modules() if isinstance(m, PVConv))
+    ones = torch.ones(200, 500)
+    conv.train()
+    torch.manual_seed(3)
+    y = conv.voxel_layers[3](ones)
+    conv.eval()
+    kept = (y != 0).float().mean().item()
+    assert abs(kept - 0.9) < 5e-3
+    assert torch.allclose(y[y != 0], torch.tensor(1.0 / 0.9))
+    assert torch.equal(conv.voxel_layers[3](ones), ones)
 
 
 def test_pvcnn2_bf16_runs_close_to_f32():

@@ -12,6 +12,15 @@ through the port. Tolerances:
   * `interp_mm_plain` vs the Pallas `interp_mm` and vs the gather form:
     8e-3 of the largest output, one bfloat16 rounding (2^-8 = 3.9e-3, on
     the output and, against the gather form, on the weights).
+  * the Pallas convs round their operands to bfloat16 even for float32
+    grids (the MXU's precision), so every conv of the TPU table
+    (`conv3d_pallas`, `conv3d_wg_pallas`, `conv3d_ms_pallas` with either
+    tap form, `conv3d_mm_pallas` unpadded) is held at that bf16 bound; so
+    are the one-hot scatters (`scatter_sum_sorted_pallas`,
+    `scatter_sum_pallas`), whose masks multiply bfloat16 features;
+  * gradients of the differentiable wrappers against `jax.grad` of the
+    matching `custom_vjp` function: float32 1e-5 of the largest entry,
+    bfloat16 at the bf16 bound, cotangent dtypes checked.
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_kernels_cuda.py.
 """
@@ -28,17 +37,23 @@ import torch
 from bdm_tpu import ops as jops
 from bdm_tpu.ops.pallas.attention import _attention_pallas_fwd_only
 from bdm_tpu.ops.pallas.ball_query import ball_query_pallas
-from bdm_tpu.ops.pallas.conv3d import conv3d_mm_pallas, conv3d_ms_pallas
+from bdm_tpu.ops.pallas.attention import attention_pallas
+from bdm_tpu.ops.pallas.conv3d import (conv3d_mm_pallas, conv3d_ms,
+                                       conv3d_ms_pallas, conv3d_pallas,
+                                       conv3d_wg_pallas)
 from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
 from bdm_tpu.ops.pallas.interp_mm import interp_mm as jax_interp_mm
 from bdm_tpu.ops.pallas.three_nn import three_nn_pallas
-from bdm_tpu.ops.pallas.voxelize import scatter_sum_sorted_padded_pallas
+from bdm_tpu.ops.pallas.voxelize import (scatter_sum_pallas,
+                                         scatter_sum_sorted_padded_pallas,
+                                         scatter_sum_sorted_pallas)
 from bdm_tpu.ops.voxelize import run_counts_sorted
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
                                     conv3d as k_conv, fps as k_fps,
-                                    interp as k_interp, three_nn as k_tnn,
+                                    interp as k_interp,
+                                    scatter_sum as k_ss, three_nn as k_tnn,
                                     voxelize as k_vox)
 
 F32_RTOL = 1e-5
@@ -297,6 +312,218 @@ def test_attention():
     _close(ops.attention(_t(q), _t(k), _t(v)).numpy(), got, F32_RTOL)
 
 
+# ------------------------------------- the other rows of the TPU table
+
+@pytest.mark.parametrize("counts", [False, True],
+                         ids=["predivided", "count_channel"])
+def test_scatter_sorted_unpadded_pallas(counts):
+    """`scatter_sum_sorted_pallas` (float32, unpadded) under its two
+    callers: pre-divided contributions (`_avg_voxelize_ctx_fwd_impl`) equal
+    the mean store, raw rows with a count channel (`_scatter_augmented`)
+    the `divide=False` store."""
+    r, c = 4, 5
+    _, f, ctx, jctx = _vox_inputs(21, r, c)
+    tile_v = r ** 3 // (jctx.tile_lo.shape[1] - 1)
+    fs = jnp.take_along_axis(jnp.asarray(f), jctx.order[..., None], axis=1)
+    args = (ctx.order, ctx.ids_sorted, ctx.voxel_lo, r, torch.float32)
+    if counts:
+        faug = jnp.concatenate([fs, jnp.ones(fs.shape[:2] + (1,))], axis=-1)
+        want = np.asarray(scatter_sum_sorted_pallas(
+            faug, jctx.ids_sorted, jctx.tile_lo, r ** 3, True, tile_v))
+        got = k_vox.scatter_mean(_t(f), *args, divide=False,
+                                 ids=ctx.ids).numpy()
+        _close(got.reshape(2, r ** 3, c), want[..., :c], BF16_TOL)
+        np.testing.assert_array_equal(          # counts are exact in bf16
+            want[..., c], np.diff(ctx.voxel_lo.numpy(), axis=1))
+        # and the raw sums are the means times the counts
+        mean = k_vox.scatter_mean(_t(f), *args, ids=ctx.ids).numpy().reshape(
+            2, -1, c)
+        _close(got.reshape(2, r ** 3, c), mean * want[..., c:], F32_RTOL)
+    else:
+        fm = fs / run_counts_sorted(jctx)[..., None]
+        want = np.asarray(scatter_sum_sorted_pallas(
+            fm, jctx.ids_sorted, jctx.tile_lo, r ** 3, True, tile_v))
+        got = k_vox.scatter_mean(_t(f), *args, ids=ctx.ids).numpy()
+        _close(got.reshape(2, r ** 3, c), want, BF16_TOL)
+
+
+@pytest.mark.parametrize("c,segs", [(5, 16), (40, 64)])
+def test_scatter_sum_unsorted(c, segs):
+    rng = np.random.default_rng(c)
+    b, n = 2, 96
+    f = rng.standard_normal((b, n, c)).astype(np.float32)
+    ids = rng.integers(0, segs, (b, n)).astype(np.int32)
+    ids[:, :8] = 3                    # a crowded segment; some stay empty
+    got = k_ss.scatter_sum(_t(f), _t(ids), segs)
+    assert got.dtype == torch.float32 and got.shape == (b, segs, c)
+    flat = (ids + np.arange(b)[:, None] * segs).reshape(-1)
+    want = jax.ops.segment_sum(jnp.asarray(f).reshape(b * n, c),
+                               jnp.asarray(flat), num_segments=b * segs)
+    _close(got.numpy().reshape(b * segs, c), want, F32_RTOL)
+    pallas = scatter_sum_pallas(jnp.asarray(f), jnp.asarray(ids), segs,
+                                interpret=True)
+    _close(got.numpy(), pallas, BF16_TOL)
+    # bf16 rows are read as they are and summed in float32
+    bf = k_ss.scatter_sum(_t(f).to(torch.bfloat16), _t(ids), segs)
+    _close(bf.numpy(), k_ss.scatter_sum(
+        _t(f).to(torch.bfloat16).float(), _t(ids), segs).numpy(), 1e-6)
+
+
+def _conv_case(seed, r, cin, cout, b=2):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, r, r, r, cin)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 3, cin, cout)) / np.sqrt(27 * cin)
+         ).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    return g, k, bias, np.ascontiguousarray(np.transpose(k, (4, 3, 0, 1, 2)))
+
+
+@pytest.mark.parametrize("name,r,cin,cout", [
+    ("slab_odd", 5, 6, 8), ("slab_even", 8, 6, 8), ("whole_grid", 4, 6, 8),
+    ("ms_pad_taps", 4, 6, 8), ("mm_unpadded_wide", 2, 264, 8)])
+def test_conv3d_against_every_pallas_conv(name, r, cin, cout):
+    """One kernel stands for every conv of the TPU table: its plain
+    version on a float32 grid against each Pallas function in interpret
+    mode, at the bf16 bound (they round grid and weights to bfloat16)."""
+    g, k, bias, w_torch = _conv_case(r + cin, r, cin, cout)
+    got = ops.voxel_conv3d(_t(g), _t(w_torch), _t(bias))
+    assert got.dtype == torch.float32 and got.shape == (2, r, r, r, cout)
+    args = (jnp.asarray(g), jnp.asarray(k), jnp.asarray(bias), r)
+    want = {
+        "slab_odd": lambda: conv3d_pallas(*args, True),
+        "slab_even": lambda: conv3d_pallas(*args, True),
+        "whole_grid": lambda: conv3d_wg_pallas(*args, True),
+        "ms_pad_taps": lambda: conv3d_ms_pallas(*args, True, None, "pad"),
+        "mm_unpadded_wide": lambda: conv3d_mm_pallas(*args, True),
+    }[name]()
+    assert want.dtype == jnp.float32          # the grid's dtype comes back
+    _close(got.numpy(), want, BF16_TOL)
+
+
+# ------------------------------------------------------------ gradients
+
+def _grad_close(got, want, tol):
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    scale = float(np.abs(want).max())
+    assert scale > 0 and got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * scale, (
+        np.abs(got - want).max(), scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_mean_grad(dtype):
+    r, c = 4, 6
+    _, f, ctx, jctx = _vox_inputs(31, r, c)
+    cot = np.random.default_rng(32).standard_normal(
+        (2, r, r, r, c)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax.grad(lambda x: (jops.avg_voxelize_ctx(x, jctx, r)
+                               * cot).sum())(jnp.asarray(f).astype(jdt))
+    x = _t(f).to(tdt).requires_grad_()
+    (ops.avg_voxelize(x, ctx, r) * _t(cot)).sum().backward()
+    assert x.grad.dtype == tdt and want.dtype == jdt
+    _grad_close(x.grad, want, 1e-5 if dtype == "float32" else BF16_ROUNDING)
+    # raw sums: every point gets its voxel's cotangent undivided
+    z = _t(f).requires_grad_()
+    (k_vox.scatter_mean(z, ctx.order, ctx.ids_sorted, ctx.voxel_lo, r,
+                        divide=False, ids=ctx.ids) * _t(cot)).sum().backward()
+    flat = cot.reshape(2, r ** 3, c)
+    np.testing.assert_array_equal(z.grad.numpy(), np.take_along_axis(
+        flat, ctx.ids.numpy().astype(np.int64)[..., None], axis=1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3d_grad(dtype):
+    r, cin, cout = 4, 6, 8
+    g, k, bias, w_torch = _conv_case(41, r, cin, cout)
+    cot = np.random.default_rng(42).standard_normal(
+        (2, r, r, r, cout)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    # the Pallas forward does not enter the cotangents: the rule is an XLA
+    # conv's VJP at the saved inputs
+    want = jax.grad(
+        lambda x, w, b_: (conv3d_ms(x, w, b_, r).astype(jnp.float32)
+                          * cot).sum(), argnums=(0, 1, 2))(
+        jnp.asarray(g).astype(jdt), jnp.asarray(k), jnp.asarray(bias))
+    x = _t(g).to(tdt).requires_grad_()
+    w = _t(w_torch).requires_grad_()
+    b_ = _t(bias).requires_grad_()
+    (ops.voxel_conv3d(x, w, b_).float() * _t(cot)).sum().backward()
+    assert (x.grad.dtype, w.grad.dtype, b_.grad.dtype) == (
+        tdt, torch.float32, torch.float32)
+    assert (want[0].dtype, want[1].dtype, want[2].dtype) == (
+        jdt, jnp.float32, jnp.float32)
+    tol = 1e-5 if dtype == "float32" else BF16_TOL
+    _grad_close(x.grad, want[0], tol)
+    _grad_close(w.grad.permute(2, 3, 4, 1, 0), want[1], tol)
+    _grad_close(b_.grad, want[2], tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_grad(dtype):
+    rng = np.random.default_rng(51)
+    q, k, v = (rng.standard_normal((2, 64, 16)).astype(np.float32) * 0.5
+               for _ in range(3))
+    cot = rng.standard_normal((2, 64, 16)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with jax.default_matmul_precision("highest"):
+        want = jax.grad(lambda *a: (attention_pallas(*a).astype(jnp.float32)
+                                    * cot).sum(), argnums=(0, 1, 2))(
+            *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    ts = [_t(a).to(tdt).requires_grad_() for a in (q, k, v)]
+    (k_attn.attention(*ts).float() * _t(cot)).sum().backward()
+    for t, w in zip(ts, want):
+        assert t.grad.dtype == tdt and w.dtype == jdt
+        _grad_close(t.grad, w, 1e-5 if dtype == "float32" else BF16_TOL)
+
+
+def test_interp_mm_grad():
+    """bf16 features (the only dtype `interp_mm` takes): the gradient is
+    the segment sum of the cotangent rows times the FLOAT32 weights, cast
+    to bf16: one bf16 rounding against the reference's."""
+    pts, ctr = _t(_cloud(61, 2, 512)), _t(_cloud(62, 2, 128))
+    idx, w = ops.three_nn(pts, ctr)
+    f = np.random.default_rng(63).standard_normal((2, 128, 24)).astype(
+        np.float32)
+    cot = np.random.default_rng(64).standard_normal((2, 512, 24)).astype(
+        np.float32)
+    want = jax.grad(lambda x: (jax_interp_mm(
+        jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()), x).astype(
+        jnp.float32) * cot).sum())(jnp.asarray(f).astype(jnp.bfloat16))
+    x = _t(f).to(torch.bfloat16).requires_grad_()
+    before = k_ss.plain_cuda_calls
+    (k_interp.interp_mm(idx, w, x).float() * _t(cot)).sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert k_ss.plain_cuda_calls == before          # a CPU call counts none
+    _grad_close(x.grad, want, BF16_ROUNDING)
+    # through the dispatching op too
+    y = _t(f).to(torch.bfloat16).requires_grad_()
+    (ops.three_nn_interpolate(pts, ctr, y).float() * _t(cot)).sum().backward()
+    np.testing.assert_array_equal(y.grad.float().numpy(),
+                                  x.grad.float().numpy())
+
+
+def test_scatter_sum_builds_no_graph():
+    """It serves a backward rule and is no `autograd.Function`: on either
+    device its result carries no gradient."""
+    rng = np.random.default_rng(71)
+    x = _t(rng.standard_normal((2, 40, 5)).astype(np.float32)).requires_grad_()
+    ids = _t(rng.integers(0, 8, (2, 40)).astype(np.int32))
+    out = k_ss.scatter_sum(x, ids, 8)
+    assert not out.requires_grad
+    torch.testing.assert_close(out.sum(1), x.detach().sum(1))
+
+
+def test_index_ops_carry_no_gradient():
+    pts = _t(_cloud(81, 2, 64)).requires_grad_()
+    ctr = _t(_cloud(82, 2, 16)).requires_grad_()
+    idx, w = ops.three_nn(pts, ctr)
+    assert not w.requires_grad and not idx.requires_grad
+    assert not ops.furthest_point_sample(pts, 8).requires_grad
+    assert not ops.ball_query(ctr, pts, 0.5, 4).requires_grad
+
+
 # ------------------------------------------------------------ dispatch
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -312,6 +539,10 @@ def test_cpu_tensors_take_the_plain_versions():
     g = ops.avg_voxelize(x, ctx, 4)
     ops.voxel_conv3d(g, torch.zeros(4, 3, 3, 3, 3), torch.zeros(4))
     k_attn.attention(x, x, x)
+    k_ss.scatter_sum(x, torch.zeros(1, 64, dtype=torch.int32), 2)
+    assert set(kernels.counts()) == {
+        "fps", "ball_query", "three_nn", "interp_mm", "scatter_mean",
+        "scatter_sum", "conv3d", "attention"}
     assert all(c == (0, 0) for c in kernels.counts().values()), \
         kernels.counts()
 
@@ -326,11 +557,14 @@ def test_cpu_tensors_take_the_plain_versions():
     lambda t: k_attn.attention(t, t, t),
     lambda t: k_vox.scatter_mean(
         t, *(t.new_zeros(s, dtype=torch.int32)
-             for s in ((1, 16), (1, 16), (1, 9))), 2),
+             for s in ((1, 16), (1, 16), (1, 9))), 2,
+        ids=t.new_zeros((1, 16), dtype=torch.int32)),
     lambda t: k_conv.conv3d(t.new_zeros((1, 4, 4, 4, 3)),
                             t.new_zeros((4, 3, 3, 3, 3)), t.new_zeros(4)),
+    lambda t: k_ss.scatter_sum(t, t.new_zeros((1, 16), dtype=torch.int32),
+                               4),
 ], ids=["fps", "ball_query", "three_nn", "interp_mm", "attention",
-        "scatter_mean", "conv3d"])
+        "scatter_mean", "conv3d", "scatter_sum"])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor off the CPU launches the kernel or raises; here (no CUDA
     device) a meta tensor must raise, not run the plain version."""
@@ -345,6 +579,7 @@ def test_package_imports_without_jax():
             "bdm_tpu_torch.models, bdm_tpu_torch.models.fusion, "
             "bdm_tpu_torch.samplers, bdm_tpu_torch.samplers.merging, "
             "bdm_tpu_torch.diffusion.ddim, bdm_tpu_torch.tools.standins, "
+            "bdm_tpu_torch.train, "
             "bdm_tpu_torch.utils.convert_jax; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)
