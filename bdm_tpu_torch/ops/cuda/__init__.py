@@ -4,7 +4,9 @@
 Every wrapper sends a CPU tensor to its plain PyTorch version and launches
 its CUDA kernel for a CUDA tensor (or raises). Each module counts its
 kernel launches (`launches`) and the calls of its plain version on CUDA
-tensors (`plain_cuda_calls`), so a run can show which path it took.
+tensors (`plain_cuda_calls`), so a run can show which path it took. The two
+modules whose source holds a tensor-core and a CUDA-core kernel (attention,
+conv3d) also count the launches of each (`launches_tc`, `launches_simt`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,10 @@ def reset_counts() -> None:
     for mod, _, _ in KERNELS.values():
         mod.launches = 0
         mod.plain_cuda_calls = 0
+        if hasattr(mod, "launches_tc"):
+            mod.launches_tc = 0
+            mod.launches_simt = 0
+    conv3d.packs = 0
 
 
 def counts() -> dict:
@@ -53,4 +59,12 @@ def counts() -> dict:
             for name, (mod, _, _) in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "build", "counts", "reset_counts"]
+def path_counts() -> dict:
+    """name -> {"tc": launches of the tensor-core kernel, "simt": of the
+    CUDA-core kernel}, for the modules that have both."""
+    return {name: {"tc": mod.launches_tc, "simt": mod.launches_simt}
+            for name, (mod, _, _) in KERNELS.items()
+            if hasattr(mod, "launches_tc")}
+
+
+__all__ = ["KERNELS", "build", "counts", "path_counts", "reset_counts"]

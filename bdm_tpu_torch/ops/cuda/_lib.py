@@ -39,6 +39,10 @@ _SIGNATURES = {
     "bdm_scatter_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the dispatch rules of the two sources that hold two kernels
+    "bdm_attention_path": (_I, _I, _I),
+    "bdm_conv3d_path": (_I, _I, _I, _I),
+    "bdm_conv3d_n_tile": (_I,),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -5,6 +5,10 @@ Replaces `_attention_pallas_fwd_only` (bdm_tpu/ops/pallas/attention.py):
 softmax(q k^T) v with no 1/sqrt(C) scale, float32 logits and softmax,
 weights cast to v's type before the second product.
 
+The source holds two kernels and `kernel_path` says which a call takes, by
+type and shape alone: bfloat16 with C a multiple of 8 the tensor-core
+kernel ("tc"), float32 and any other C the CUDA-core one ("simt").
+
 `attention` is differentiable (`_attn_vjp_bwd`): the backward recomputes
 the float32 logits and softmax and applies the standard cotangents with
 `torch.matmul`, rounding where the reference rounds (the weights to v's
@@ -18,8 +22,17 @@ import torch
 from bdm_tpu_torch.ops.cuda import _lib
 
 launches = 0
+launches_tc = 0
+launches_simt = 0
 plain_cuda_calls = 0
 MAX_CHANNELS = 128
+
+
+def kernel_path(dtype: torch.dtype, s: int, c: int) -> str:
+    """Which kernel of `csrc/attention.cu` CUDA tensors of this type and
+    shape launch (`bdm_attention_path` is the same rule in the source)."""
+    tc = dtype == torch.bfloat16 and c % 8 == 0 and c <= MAX_CHANNELS
+    return "tc" if tc else "simt"
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -34,7 +47,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _forward(q, k, v):
-    global launches
+    global launches, launches_tc, launches_simt
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -46,10 +59,18 @@ def _forward(q, k, v):
         raise ValueError(f"attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} "
                          f"(C <= {MAX_CHANNELS})")
+    path = kernel_path(v.dtype, s, c)
+    if path == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention: bfloat16 operands must be 16-byte "
+                         "aligned")
     out = torch.empty_like(v)
     _lib.launch("bdm_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), b, s, c, _lib.DTYPE_CODES[v.dtype])
     launches += 1
+    if path == "tc":
+        launches_tc += 1
+    else:
+        launches_simt += 1
     return out
 
 

@@ -11,6 +11,13 @@ to the input type (as the TPU path casts its kernel), float32 accumulation
 and bias, output in the input type. Weights keep the reference layout
 (Cout, Cin, 3, 3, 3).
 
+The source holds two kernels and `kernel_path` says which a call takes, by
+the grid's type alone: bfloat16 grids the tensor-core kernel ("tc"),
+float32 grids the CUDA-core one ("simt"). Each reads the weights in a layout
+of its own (`pack_weight`, `gemm_weight`); `packed` makes that copy and the
+float32 bias once per weight and keeps it until the parameter changes, so
+sampling packs once a layer and training once a step.
+
 `conv3d` is differentiable (`_conv3d_bwd`): the cotangents of a plain conv
 whose weights were cast to the grid's dtype, returned in the primal dtypes
 (the weights' and the bias's gradients float32), through one
@@ -19,13 +26,19 @@ whose weights were cast to the grid's dtype, returned in the primal dtypes
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
 from bdm_tpu_torch.ops.cuda import _lib
 
 launches = 0
+launches_tc = 0
+launches_simt = 0
 plain_cuda_calls = 0
+packs = 0       # weight copies made by `packed`: cache misses
+CIN_STEP = 16   # the depth of one tensor-core product
 
 
 def conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -40,16 +53,91 @@ def conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)
 
 
+def kernel_path(dtype: torch.dtype, cin: int, cout: int, r: int) -> str:
+    """Which kernel of `csrc/conv3d.cu` a CUDA grid of this type and shape
+    launches (`bdm_conv3d_path` is the same rule in the source)."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def n_tile(cout: int) -> int:
+    """Output channels a block of the tensor-core kernel computes
+    (`bdm_conv3d_n_tile`)."""
+    return 32 if cout <= 32 else 64
+
+
+def padded(n: int, step: int) -> int:
+    return -(-n // step) * step
+
+
 def gemm_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(Cout, Cin, 3, 3, 3) -> (27 * Cin, Cout), tap-major rows
-    (kd, kh, kw, ci): the layout the kernel reads."""
+    (kd, kh, kw, ci): the layout the CUDA-core kernel reads."""
     cout, cin = weight.shape[:2]
     return (weight.to(dtype).permute(2, 3, 4, 1, 0)
             .reshape(27 * cin, cout).contiguous())
 
 
+def pack_weight(weight: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3, 3) -> (27, Cin_p, Cout_p) bfloat16, taps in
+    (kd, kh, kw) order, Cin_p a multiple of 16 and Cout_p of the N tile,
+    zeros in the padding: the layout the tensor-core kernel reads."""
+    cout, cin = weight.shape[:2]
+    w = weight.detach().to(torch.bfloat16).permute(2, 3, 4, 1, 0)
+    out = w.new_zeros((27, padded(cin, CIN_STEP), padded(cout, n_tile(cout))))
+    out[:, :cin, :cout] = w.reshape(27, cin, cout)
+    return out
+
+
+def pack_bias(bias: torch.Tensor, cout_p: int) -> torch.Tensor:
+    out = bias.new_zeros((cout_p,), dtype=torch.float32)
+    out[:bias.shape[0]] = bias.detach().float()
+    return out
+
+
+# (id(weight), grid dtype) -> (weakrefs to the weight and the bias, their
+# stamps, packed weights, packed bias); an entry goes when its weight dies
+_packed = {}
+
+
+def _stamp(t: torch.Tensor):
+    return (t.data_ptr(), t._version, t.device, t.dtype)
+
+
+def packed(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
+    """-> (weights, float32 bias) as the kernel that serves grids of `dtype`
+    reads them, made at the first call and again after either tensor was
+    written in place, replaced or moved (`data_ptr()`, `_version`). Tensors
+    made under `inference_mode` carry no version: they are packed at every
+    call. A write through `weight.data` bumps no version and is not seen:
+    update parameters in place under `torch.no_grad()`, as the optimizers
+    and `load_state_dict` do."""
+    global packs
+    cacheable = not (weight.is_inference() or bias.is_inference())
+    key = (id(weight), dtype)
+    if cacheable:
+        stamp = (_stamp(weight), _stamp(bias))
+        hit = _packed.get(key)
+        if (hit is not None and hit[0]() is weight and hit[1]() is bias
+                and hit[2] == stamp):
+            return hit[3], hit[4]
+    packs += 1
+    cout, cin = weight.shape[:2]
+    # one copy serves every grid size: the rule reads no R
+    if kernel_path(dtype, cin, cout, 0) == "tc":
+        w = pack_weight(weight)
+        bf = pack_bias(bias, w.shape[2])
+    else:
+        w = gemm_weight(weight.detach(), dtype)
+        bf = bias.detach().float().contiguous()
+    if cacheable:
+        _packed[key] = (
+            weakref.ref(weight, lambda _, key=key: _packed.pop(key, None)),
+            weakref.ref(bias), stamp, w, bf)
+    return w, bf
+
+
 def _forward(x, weight, bias):
-    global launches
+    global launches, launches_tc, launches_simt
     if x.device.type == "cpu":
         return conv3d_plain(x, weight, bias)
     _lib.check(x, "x", tuple(_lib.DTYPE_CODES), 5)
@@ -62,12 +150,16 @@ def _forward(x, weight, bias):
         raise ValueError(f"conv3d: x {tuple(x.shape)} on {x.device}, weight "
                          f"{tuple(weight.shape)} on {weight.device}, bias "
                          f"{tuple(bias.shape)} on {bias.device}")
-    w = gemm_weight(weight, x.dtype)
-    bf = bias.float().contiguous()
+    path = kernel_path(x.dtype, cin, cout, r)
+    w, bf = packed(weight, bias, x.dtype)
     out = torch.empty((b, r, r, r, cout), dtype=x.dtype, device=x.device)
     _lib.launch("bdm_conv3d", x.data_ptr(), w.data_ptr(), bf.data_ptr(),
                 out.data_ptr(), b, r, cin, cout, _lib.DTYPE_CODES[x.dtype])
     launches += 1
+    if path == "tc":
+        launches_tc += 1
+    else:
+        launches_simt += 1
     return out
 
 

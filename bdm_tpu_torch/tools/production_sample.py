@@ -9,7 +9,8 @@ package: batch 8, 4096 points, bf16, DDPM with 1000 steps, milestones
 for BDM-Merging). Weights are random from a seed; throughput does not depend
 on them. Prints, for each run, one JSON line with the wall time (host
 clock around a synchronised run), clouds per second, peak device memory,
-every kernel's launches and the card's name and power limit.
+every kernel's launches (those of attention and conv3d also by kernel,
+tensor-core against CUDA-core) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ def main() -> None:
             "finite": bool(torch.isfinite(out).all()),
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": {k: v[0] for k, v in counts.items()},
+            "launches_by_kernel": kernels.path_counts(),
             "plain_on_card": sum(v[1] for v in counts.values()),
             "card": card}), flush=True)
 

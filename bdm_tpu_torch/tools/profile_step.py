@@ -31,7 +31,8 @@ from bdm_tpu_torch.tools.standins import (camera, production_models,
 from bdm_tpu_torch.train import (create_train_state, make_optimizer,
                                  make_train_step, pc2_freeze_mask)
 
-KERNELS = ("conv3d_kernel", "attention_kernel", "fps_kernel",
+KERNELS = ("conv3d_tc_kernel", "conv3d_simt_kernel", "attention_tc_kernel",
+           "attention_simt_kernel", "fps_kernel",
            "scatter_mean_kernel", "scatter_sum_kernel", "ball_query_kernel",
            "three_nn_kernel", "interp_kernel")
 # cuDNN's convolution kernels by the words their names carry

@@ -12,7 +12,12 @@ Phases, in the order they run (any failure exits non-zero):
      and bfloat16; indices exact, floats under a stated tolerance; median
      times of kernel, plain version and, where one PyTorch call computes
      the same function, that call (CUDA events, after warm-up); the least
-     time the card could take for the same work (`bound_ms`);
+     time the card could take for the same work (`bound_ms`); for the two
+     kernels with a tensor-core and a CUDA-core form (attention, conv3d)
+     also ragged and narrow shapes, the dispatch rule of the source against
+     the wrapper's `kernel_path`, and, printed beside the new bfloat16
+     time, the recorded time of the CUDA-core kernel that served bfloat16
+     before (a constant, so it stays out of the `kernels` line);
   a'. gradients: each differentiable wrapper forward through its kernel
      and backward on the card, against forward and backward of its plain
      version under PyTorch's own autograd on the card;
@@ -38,11 +43,13 @@ Phases, in the order they run (any failure exits non-zero):
      steps (its 512 -> 512 conv at R=8), then one training step of the
      fusion network at production widths, B=2, bf16, both towers frozen.
 In c, e, g and h every kernel of the path must have launched and no plain
-version may have run on the card. In the phases at production widths (b,
-c, e, g, h) every launch of the kernels whose shapes follow the model's
-widths (conv3d, attention, scatter_mean) notes its shape; the run fails
-if a path gave a kernel a shape that phase a did not hold against the
-plain version.
+version may have run on the card; on the bfloat16 paths (b, c, e, bf16 g,
+the fusion step of h) every launch of attention and conv3d must have taken
+the tensor-core kernel, on the float32 paths the CUDA-core one. In the
+phases at production widths (b, c, e, g, h) every launch of the kernels
+whose shapes follow the model's widths (conv3d, attention, scatter_mean)
+notes its shape; the run fails if a path gave a kernel a shape that phase a
+did not hold against the plain version.
 
 Weights are random from a seed (the released checkpoints are not in the
 repository); throughput does not depend on them. The last line of standard
@@ -119,6 +126,29 @@ def bound(tensors, flops: float, kind: str) -> dict:
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+# Times of the CUDA-core kernels that served bfloat16 before the tensor-core
+# ones, ms at B=8 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6
+# keeps them in rows 5, 11, 12 and 12u).
+PREVIOUS_MS = {
+    "attention": {(4096, 64): 8.3895, (4096, 128): 16.3172},
+    "conv3d": {(390, 32, 32): 17.5726, (64, 64, 32): 2.9222,
+               (512, 512, 8): 4.5892},
+}
+
+
+# Phase a holds conv3d at the convs of PC2, PVD and the fusion network,
+# (Cin, Cout, R); an odd grid (R=9, the TPU's per-slab `conv3d_pallas`);
+# those of PVD at twice the width, the widest of them Cin 512 (the TPU's
+# unpadded `conv3d_mm`)
+CONVS = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
+         (64, 64, 16), (192, 128, 8), (128, 128, 8), (256, 256, 8),
+         (128, 128, 16), (64, 64, 32), (128, 128, 9),
+         (3, 64, 32), (128, 128, 32), (192, 128, 16), (256, 256, 16),
+         (320, 256, 8), (512, 512, 8)]
+# ... and attention at (S, C): C 64 at the published widths, C 128 (the
+# kernel's widest) in PVD at twice the width
+ATTNS = [(4096, 64), (4096, 128)]
+
 # The shapes the paths gave the kernels whose shapes follow the model's
 # widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N).
 SEEN = {"conv3d": set(), "attention": set(), "scatter_mean": set()}
@@ -163,8 +193,8 @@ def check_kernels(dev):
     import torch
     import torch.nn.functional as F
     from bdm_tpu_torch import ops
-    from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, fps,
-                                        interp, scatter_sum, three_nn,
+    from bdm_tpu_torch.ops.cuda import (_lib, attention, ball_query, conv3d,
+                                        fps, interp, scatter_sum, three_nn,
                                         voxelize)
 
     g = torch.Generator().manual_seed(SEED)
@@ -389,19 +419,25 @@ def check_kernels(dev):
         **bound([f0, ctx0.order, ctx0.voxel_lo, grid0], b * 4096 * 390 * 2,
                 "f32"))
 
-    # convs of PC2, PVD and the fusion network: (Cin, Cout, R); an odd
-    # grid (R=9, the TPU's per-slab `conv3d_pallas`); those of PVD at twice
-    # the width, the widest of them Cin 512 (the TPU's unpadded `conv3d_mm`)
-    convs = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
-             (64, 64, 16), (192, 128, 8), (128, 128, 8), (256, 256, 8),
-             (128, 128, 16), (64, 64, 32), (128, 128, 9),
-             (3, 64, 32), (128, 128, 32), (192, 128, 16), (256, 256, 16),
-             (320, 256, 8), (512, 512, 8)]
+    convs = CONVS
+    # beside them, held but on no path: every Cin of the list on the odd
+    # grid (tiles ragged in all three axes), a Cout that is no multiple of
+    # the N tile, and an odd Cout
+    ragged = sorted({(cin, 32, 9) for cin, _, _ in convs}) + [
+        (64, 130, 9), (16, 7, 5)]
+    lib = _lib.library()
     err = 0.0
-    for cin, cout, r in convs:
+    for cin, cout, r in convs + ragged:
         wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
         bias = randn(cout, scale=0.1)
+        if lib.bdm_conv3d_n_tile(cout) != conv3d.n_tile(cout):
+            fail(f"conv3d: the source's N tile for Cout={cout} is not "
+                 f"the wrapper's")
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            tc = lib.bdm_conv3d_path(_lib.DTYPE_CODES[dt], cin, cout, r) == 1
+            if tc != (conv3d.kernel_path(dt, cin, cout, r) == "tc"):
+                fail(f"conv3d {cin}->{cout} R={r} {dt}: the source's "
+                     f"dispatch is not `kernel_path`")
             x = randn(b, r, r, r, cin, dtype=dt)
             err = max(err, rel_err(conv3d.conv3d(x, wt, bias),
                                    conv3d.conv3d_plain(x, wt, bias), tol,
@@ -441,9 +477,19 @@ def check_kernels(dev):
         f32_512_512_r8=conv_times(512, 512, 8, torch.float32),
         bf16_512_512_r8=conv_times(512, 512, 8))
 
-    # C 64 at the published widths, C 128 (the kernel's widest) in PVD at
-    # twice the width
-    attns = [(4096, 64), (4096, 128)]
+    attns = ATTNS
+
+    def hold_attention(s, c, dt, tol, scale=0.3):
+        tc = lib.bdm_attention_path(_lib.DTYPE_CODES[dt], s, c) == 1
+        if tc != (attention.kernel_path(dt, s, c) == "tc"):
+            fail(f"attention S={s} C={c} {dt}: the source's dispatch is "
+                 f"not `kernel_path`")
+        qkv = [randn(b, s, c, scale=scale, dtype=dt) for _ in range(3)]
+        out = attention.attention(*qkv)
+        if not torch.isfinite(out).all():
+            fail(f"attention S={s} C={c} {dt}: output not finite")
+        return rel_err(out, attention.attention_plain(*qkv), tol,
+                       f"attention S={s} C={c} {dt}")
 
     def attn_times(s, c):
         """Holds attention at (S, C) in both types; -> the bf16 times, the
@@ -451,10 +497,9 @@ def check_kernels(dev):
         1) and the bound: q k^T and p v, two products of 2 * S * S * C."""
         err = 0.0
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-            qkv = [randn(b, s, c, scale=0.3, dtype=dt) for _ in range(3)]
-            err = max(err, rel_err(attention.attention(*qkv),
-                                   attention.attention_plain(*qkv), tol,
-                                   f"attention S={s} C={c} {dt}"))
+            err = max(err, hold_attention(s, c, dt, tol))
+        qkv = [randn(b, s, c, scale=0.3, dtype=torch.bfloat16)
+               for _ in range(3)]
         out = attention.attention(*qkv)
         heads = [t[:, None] for t in qkv]
         rel_err(F.scaled_dot_product_attention(*heads, scale=1.0)[:, 0], out,
@@ -468,8 +513,17 @@ def check_kernels(dev):
 
     wide = attn_times(4096, 128)
     res["attention"] = dict(attn_times(4096, 64), s4096_c128=wide)
+    # held but on no path: S of an odd grid (729 = 9^3: a ragged last key
+    # tile and query tile) at narrow and wide C, rows peaked by a larger
+    # scale; S below one tile; a C that is no multiple of 8 (CUDA cores)
+    odd = max(hold_attention(s, c, dt, tol, scale)
+              for s, c, scale in ((729, 16, 1.0), (729, 32, 1.0),
+                                  (729, 128, 0.3), (64, 16, 1.0),
+                                  (125, 64, 0.5), (300, 48, 0.5),
+                                  (200, 12, 1.0))
+              for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)))
     res["attention"]["max_abs_err"] = max(res["attention"]["max_abs_err"],
-                                          wide["max_abs_err"])
+                                          wide["max_abs_err"], odd)
     for name, r in res.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -483,6 +537,17 @@ def check_kernels(dev):
                 print(f"{name} {key}:", json.dumps(val))
     for name in ("interp_mm", "scatter_sum"):
         print(f"{name} by shape, ms:", json.dumps(res[name]["ms_by_shape"]))
+    # the new bfloat16 times beside the recorded ones of the CUDA-core kernels
+    now = {"attention": {(4096, 64): res["attention"]["ms"],
+                         (4096, 128): wide["ms"]},
+           "conv3d": {(390, 32, 32): res["conv3d"]["ms"],
+                      (64, 64, 32): res["conv3d"]["narrow_64_64_r32"]["ms"],
+                      (512, 512, 8): res["conv3d"]["bf16_512_512_r8"]["ms"]}}
+    for name, shapes in PREVIOUS_MS.items():
+        for shape, before in shapes.items():
+            ms = now[name][shape]
+            print(f"{name} {shape} bf16: {ms:.4f} ms on the tensor cores "
+                  f"(CUDA-core kernel before: {before} ms, {before / ms:.1f}x)")
     return res, {"conv3d": set(convs), "attention": set(attns),
                  "scatter_mean": set(sites)}
 
@@ -717,7 +782,8 @@ def forwards(pc2, merge, dev):
         if eps.shape != (b, n, 3) or not torch.isfinite(eps).all():
             fail(f"{name} output {tuple(eps.shape)} not finite")
         ms = statistics.median(times[1:]) * 1e3
-        launches = {k: v[0] for k, v in kernels.counts().items()}
+        launches = check_path(name, kernels.counts(), kernels.path_counts(),
+                              ("scatter_sum",))
         print(f"{name} B={b} N={n} bf16: {ms:.2f} ms (median of "
               f"{len(times) - 1} after warm-up); launches "
               f"{json.dumps(launches)}")
@@ -743,19 +809,24 @@ def sampler_path(name, run, milestones, roll_step, dev):
               num_inference_steps=50)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.counts()
+    counts, paths = kernels.counts(), kernels.path_counts()
     print(f"{name} B={b} N={n} bf16, 50 steps, milestones {milestones}, "
           f"roll {roll_step}: {wall:.2f} s wall")
-    print("launch counts (kernel, plain on CUDA):", json.dumps(counts))
+    print("launch counts (kernel, plain on CUDA):", json.dumps(counts),
+          "by kernel:", json.dumps(paths), "conv3d weight packs:",
+          kernels.conv3d.packs)
     if out.shape != (b, n, 3) or not torch.isfinite(out).all():
         fail(f"{name} output {tuple(out.shape)} not finite")
     # sampling differentiates nothing: the blend's backward kernel rests
-    return check_path(name, counts, ("scatter_sum",)), wall
+    return check_path(name, counts, paths, ("scatter_sum",)), wall
 
 
-def check_path(name, counts, unused=()):
+def check_path(name, counts, paths, unused=(), float32=False):
     """Every kernel launched on the path but those in `unused`, which
-    launched no time; no plain version ran on the card."""
+    launched no time; no plain version ran on the card; every launch of
+    attention and conv3d took the tensor-core kernel (on a float32 path the
+    CUDA-core one: the rule of `kernel_path` names no other shape). -> the
+    launches, those two kernels' also by kernel ("conv3d_tc", ...)."""
     for kernel, (launches, plain) in counts.items():
         if (launches <= 0) != (kernel in unused):
             fail(f"kernel {kernel} launched {launches} times on the {name} "
@@ -763,14 +834,23 @@ def check_path(name, counts, unused=()):
         if plain != 0:
             fail(f"plain version of {kernel} ran on the card {plain} times "
                  f"on the {name} path")
-    return {k: v[0] for k, v in counts.items()}
+    out = {k: v[0] for k, v in counts.items()}
+    for kernel, by in paths.items():
+        if by["tc"] + by["simt"] != out[kernel]:
+            fail(f"{kernel} on the {name} path: {by} launches by kernel, "
+                 f"{out[kernel]} in all")
+        if by["tc" if float32 else "simt"] != 0:
+            fail(f"{kernel} on the {name} path launched {by}: the wrong "
+                 f"kernel for a {'float32' if float32 else 'bfloat16'} path")
+        out.update({f"{kernel}_{k}": v for k, v in by.items()})
+    return out
 
 
 def run_training(name, model, loss_fn, batches, noise, steps):
     """`steps` steps of `train_loop` with the reference optimizer (AdamW
     lr 1e-3, betas (0.95, 0.999), weight decay 1e-6, clip 50) and the EMA;
-    -> (launch counts, losses, median step ms after the first step, peak
-    GiB, the state)."""
+    -> ((launch counts, those by kernel), losses, median step ms after the
+    first step, peak GiB, the state)."""
     import torch
     from bdm_tpu_torch.ops import cuda as kernels
     from bdm_tpu_torch.train import (create_train_state, make_optimizer,
@@ -790,13 +870,14 @@ def run_training(name, model, loss_fn, batches, noise, steps):
     marks.append(time.perf_counter())
     train_loop(state, loss_fn, batches, steps, noise, callbacks=[clock],
                log_step_freq=1, print_freq=10 ** 9)
-    counts = kernels.counts()
+    counts = kernels.counts(), kernels.path_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     ms = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
     print(f"{name}: {steps} steps, losses {losses}, step ms {step_ms} "
           f"(median after the first {ms:.2f}), peak memory {peak:.3f} GiB")
-    print("launch counts (kernel, plain on CUDA):", json.dumps(counts))
+    print("launch counts (kernel, plain on CUDA):", json.dumps(counts[0]),
+          "by kernel:", json.dumps(counts[1]))
     if state.step != steps or not all(x == x and abs(x) < 1e30
                                       for x in losses):
         fail(f"{name}: losses {losses} after {state.step} steps")
@@ -895,8 +976,8 @@ def pc2_training(dev, mixed_precision, steps=4):
         if not torch.equal(v, vit[k]):
             fail(f"{name}: the frozen feature model moved at {k}")
     f32 = mixed_precision == "no"
-    launches = check_path(name, counts,
-                          ("interp_mm", "scatter_sum") if f32 else ())
+    launches = check_path(name, *counts,
+                          ("interp_mm", "scatter_sum") if f32 else (), f32)
     if not f32 and launches["scatter_sum"] != 2 * steps:
         fail(f"{name}: scatter_sum launched {launches['scatter_sum']} times "
              f"in {steps} steps")
@@ -934,7 +1015,8 @@ def wide_and_fusion_training(merge, dev):
         fail("PVD x2 never ran its attention at C=128")
     behind_dead = check_gradients_reached("PVD x2", pvd, dead)
     out = {"pvd_x2": dict(
-        launches=check_path("PVD x2", counts, ("interp_mm", "scatter_sum")),
+        launches=check_path("PVD x2", *counts, ("interp_mm", "scatter_sum"),
+                            float32=True),
         step_ms=ms, peak_gib=peak,
         zero_gradients_behind_dead_gates=behind_dead)}
     del pvd
@@ -957,7 +1039,7 @@ def wide_and_fusion_training(merge, dev):
           f"{moved} of {len(moving)} trainable tensors moved")
     if moved == 0:
         fail("fusion training moved nothing")
-    out["fusion"] = dict(launches=check_path("fusion training", counts),
+    out["fusion"] = dict(launches=check_path("fusion training", *counts),
                          step_ms=ms, peak_gib=peak)
     return out
 
@@ -1009,18 +1091,22 @@ def main() -> int:
     by_path = dict(bdm_blending=blend, bdm_merging=merged,
                    **{k: v["launches"] for k, v in train.items()})
 
+    by_path.update({k: v["launches"] for k, v in fwd.items()})
+
     rows = []
     for name, (mod, source, replaces) in kernels.KERNELS.items():
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             # of this slice's main path, the four bf16 training steps of
             # PC2, where all eight launch; every path's own count follows
             launches=by_path["pc2_bf16"][name],
-            launches_by_path=dict(
-                {k: v[name] for k, v in by_path.items()},
-                pc2_forward=fwd["pc2_forward"]["launches"][name],
-                fusion_forward=fwd["fusion_forward"]["launches"][name]),
-            **res[name]))
+            launches_by_path={k: v[name] for k, v in by_path.items()},
+            **res[name])
+        if hasattr(mod, "launches_tc"):
+            row["launches_by_kernel"] = {
+                k: {"tc": v[f"{name}_tc"], "simt": v[f"{name}_simt"]}
+                for k, v in by_path.items()}
+        rows.append(row)
     print(json.dumps({"denoise_step_ms": fwd["pc2_forward"]["ms"],
                       "fusion_forward_ms": fwd["fusion_forward"]["ms"],
                       "bdm_b_wall_s": blend_wall,

@@ -14,7 +14,10 @@ plain version's bit for bit, an FMA of an exact product rounds the same);
 the unsorted segment sum 1e-5 against the card's `index_add_` (atomics, an
 order that changes from run to run) and bit for bit against the CPU's
 (index order, the kernel's own); gradients 1e-4 (float32) against the plain
-versions under PyTorch's autograd.
+versions under PyTorch's autograd. bfloat16 attention (C a multiple of 8)
+and every bfloat16 conv run on the tensor cores, float32 on the CUDA cores:
+both are held here, at ragged and narrow shapes too, and the counters say
+which kernel a call took.
 """
 
 import pytest
@@ -22,7 +25,8 @@ import torch
 
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
-from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
+from bdm_tpu_torch.ops.cuda import (_lib, attention as k_attn,
+                                    ball_query as k_bq,
                                     conv3d as k_conv, fps as k_fps,
                                     interp as k_interp,
                                     scatter_sum as k_ss, three_nn as k_tnn,
@@ -174,3 +178,88 @@ def test_gradients_through_the_kernels(dev):
     fb.grad = None
     k_interp.interp_mm_plain(idx, w, fb).float().square().sum().backward()
     assert got.dtype == torch.bfloat16 and _rel(got, fb.grad) < 1e-2
+
+
+@pytest.mark.parametrize("s,c,scale", [
+    (729, 16, 1.0), (729, 32, 1.0), (729, 128, 0.3), (64, 16, 1.0),
+    (125, 64, 0.5), (300, 48, 0.5), (2048, 8, 1.0), (200, 12, 1.0)],
+    ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_ragged_and_narrow(dev, dtype, s, c, scale):
+    """S that is no multiple of the key or the query tile, C below and at
+    the kernel's widest, peaked rows; C 12 takes the CUDA cores."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    q, k, v = ((_cloud(dev, 3, s, c, seed=20 + i) * scale).to(dtype)
+               for i in range(3))
+    kernels.reset_counts()
+    out = k_attn.attention(q, k, v)
+    assert torch.isfinite(out).all()
+    assert _rel(out, k_attn.attention_plain(q, k, v)) < tol
+    path = k_attn.kernel_path(dtype, s, c)
+    assert path == ("tc" if dtype == torch.bfloat16 and c % 8 == 0
+                    else "simt")
+    assert kernels.path_counts()["attention"] == {
+        "tc": int(path == "tc"), "simt": int(path == "simt")}
+    assert bool(_lib.library().bdm_attention_path(
+        _lib.DTYPE_CODES[dtype], s, c)) == (path == "tc")
+
+
+@pytest.mark.parametrize("cin,cout,r", [
+    (3, 32, 9), (6, 8, 5), (390, 32, 9), (64, 130, 9), (16, 7, 5),
+    (40, 64, 8), (1, 1, 1), (128, 128, 9)], ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_ragged_and_narrow(dev, dtype, cin, cout, r):
+    """Grids ragged in all three axes of the block's tile, Cin that is odd,
+    even and a multiple of 8 (the three ways the halo is staged), Cout that
+    is odd or no multiple of the N tile."""
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    x = _cloud(dev, 2, r, r, r, cin, seed=30).to(dtype)
+    wt = _cloud(dev, cout, cin, 3, 3, 3, seed=31) * (27 * cin) ** -0.5
+    bias = _cloud(dev, cout, seed=32) * 0.1
+    kernels.reset_counts()
+    out = k_conv.conv3d(x, wt, bias)
+    assert out.shape == (2, r, r, r, cout) and torch.isfinite(out).all()
+    assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < tol
+    tc = dtype == torch.bfloat16
+    assert kernels.path_counts()["conv3d"] == {"tc": int(tc),
+                                               "simt": int(not tc)}
+    lib = _lib.library()
+    assert bool(lib.bdm_conv3d_path(_lib.DTYPE_CODES[dtype], cin, cout,
+                                    r)) == tc
+    assert lib.bdm_conv3d_n_tile(cout) == k_conv.n_tile(cout)
+
+
+def test_bf16_calls_take_the_tensor_cores(dev):
+    """The production shapes at bfloat16 launch the tensor-core kernels
+    and nothing else; the packed weights are made once a weight."""
+    kernels.reset_counts()
+    q = (_cloud(dev, 2, 4096, 64, seed=5) * 0.3).to(torch.bfloat16)
+    k_attn.attention(q, q, q)
+    x = _cloud(dev, 2, 16, 16, 16, 128, seed=6).to(torch.bfloat16)
+    wt = _cloud(dev, 64, 128, 3, 3, 3, seed=7) * 0.02
+    bias = _cloud(dev, 64, seed=8)
+    for _ in range(3):
+        k_conv.conv3d(x, wt, bias)
+    assert kernels.path_counts() == {"conv3d": {"tc": 3, "simt": 0},
+                                     "attention": {"tc": 1, "simt": 0}}
+    assert kernels.counts()["conv3d"] == (3, 0)
+    assert k_conv.packs == 1
+    with torch.no_grad():
+        wt.mul_(2.0)
+    doubled = k_conv.conv3d(x, wt, bias)
+    assert k_conv.packs == 2
+    assert _rel(doubled, k_conv.conv3d_plain(x, wt, bias)) < 1e-2
+
+
+@pytest.mark.parametrize("cin", [3, 6])
+def test_conv3d_takes_a_batch_slice_of_an_odd_grid(dev, cin):
+    """A contiguous batch slice of an odd grid with a narrow Cin starts at
+    no multiple of 16 bytes: the halo is staged by 2- or 4-byte copies there,
+    which need no more."""
+    whole = _cloud(dev, 3, 5, 5, 5, cin, seed=40).to(torch.bfloat16)
+    x = whole[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    wt = _cloud(dev, 7, cin, 3, 3, 3, seed=41) * (27 * cin) ** -0.5
+    bias = _cloud(dev, 7, seed=42) * 0.1
+    out = k_conv.conv3d(x, wt, bias)
+    assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-2
