@@ -2,104 +2,175 @@
 //
 // Replaces the TPU kernel `_fps_kernel` / `furthest_point_sample_pallas`
 // (bdm_tpu/ops/pallas/fps.py). Semantics: start from index 0; each of the
-// M-1 rounds lowers every point's running min squared distance by its
-// distance to the last pick and picks the argmax, lowest index on ties.
+// M-1 rounds lowers every point's running min squared distance (from 1e38)
+// by its distance to the last pick and picks the argmax, lowest index on
+// ties.
 //
 // Bound on the H100: the M-1 rounds are sequential and each one ends in a
-// block-wide argmax, so the kernel is latency bound (one barrier pair per
-// round), not bandwidth bound: a (4096, 3) cloud is 48 KB.
-// Design: one block per cloud; coordinates and running distances live in
-// dynamic shared memory (16 bytes a point, 64 KB at N = 4096), so no round
-// touches device memory except the one index it writes. The argmax is a
-// warp-shuffle reduction over (value, index) pairs and a second one over
-// the per-warp winners.
+// block-wide argmax, so the kernel is bound by the length of one round (its
+// latency and its instruction count), not by bytes (a (4096, 3) cloud is
+// 48 KB) or operations.
+// `bdm_fps_round_floor` runs the same rounds with the distance work left
+// out: the floor this design can reach.
+// Design: one block per cloud of T threads, T sized from N
+// (`bdm_fps_threads`); thread t owns the K points t, t + T, ... in
+// registers (x, y, z and the running distance), so a round reads no memory
+// but the last winner's coordinates (from a float4 copy of the cloud in
+// shared memory). A thread keeps its first maximum (a pairwise tree in
+// which the higher indices win only by a strict >); a warp takes the max
+// of the distances' bits (distances are >= +0, so their bits order as
+// unsigned integers) and then the min of the indices over the lanes
+// holding it: with strided ownership the lowest lane is not the lowest
+// index. Each warp writes its (bits, index) to a slot of a double-buffered
+// array; after the round's single barrier every warp reduces the slots
+// itself, so no second barrier and no serial step. Padding points (index
+// >= N) sit at distance 0 with an index above every real point's, so they
+// never win: if the maximum is 0, a real point holds it with a lower index.
+#include <algorithm>
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kFpsThreads = 512;
+constexpr int kFpsMaxThreads = 1024;
+constexpr int kPointsAThread = 8;   // points a thread aims at
 
-__device__ __forceinline__ void argmax_pair(float& v, int& i, float ov,
-                                            int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+// Threads a cloud of n points gets: n / kPointsAThread rounded up to a warp,
+// at most 1024 (ops/cuda/fps.py::threads is the same rule).
+int fps_threads(int n) {
+  const int t = (n + kPointsAThread - 1) / kPointsAThread;
+  return std::min(kFpsMaxThreads, std::max(32, (t + 31) / 32 * 32));
+}
+
+// Points a thread holds: ceil(n / threads) rounded up to a power of two.
+int fps_points(int n) {
+  const int t = fps_threads(n);
+  const int k = (n + t - 1) / t;
+  int p = 1;
+  while (p < k) p *= 2;
+  return p;
+}
+
+template <int K, bool kFloor>
+__global__ void __launch_bounds__(kFpsMaxThreads)
+    fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
+               int m) {
+  extern __shared__ float4 cloud[];       // the winner's coordinates
+  __shared__ uint2 slots[2][32];          // (bits, index) a warp, per parity
+  const int nt = blockDim.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
+  int* o = out + static_cast<size_t>(blockIdx.x) * m;
+
+  float x[K], y[K], z[K], dist[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = t + k * nt;
+    x[k] = y[k] = z[k] = 0.0f;
+    dist[k] = 0.0f;                       // padding
+    if (i < n) {
+      x[k] = p[3 * i];
+      y[k] = p[3 * i + 1];
+      z[k] = p[3 * i + 2];
+      dist[k] = 1e38f;
+      cloud[i] = make_float4(x[k], y[k], z[k], 0.0f);
+    }
+  }
+  // slots of warps the block does not have stay at a key that never wins
+  for (int i = t; i < 64; i += nt)
+    slots[i >> 5][i & 31] = make_uint2(0u, UINT_MAX);
+  if (t == 0) o[0] = 0;
+  __syncthreads();
+
+  float4 last = cloud[0];
+  unsigned picked = 0;
+  for (int j = 1; j < m; ++j) {
+    float d[K];
+    int di[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (kFloor) {
+        // no distance work; the xor ties the round to the last pick so
+        // the compiler cannot hoist the scan out of the loop
+        d[k] = __uint_as_float(__float_as_uint(dist[k]) ^ (picked & 1u));
+      } else {
+        d[k] = fminf(dist[k],
+                     sqdist(x[k], y[k], z[k], last.x, last.y, last.z));
+        dist[k] = d[k];
+      }
+      di[k] = t + k * nt;
+    }
+    // the thread's argmax as a pairwise tree (log2 K steps, not K): the
+    // right side, whose indices are higher, wins only by a strict >
+#pragma unroll
+    for (int w = 1; w < K; w *= 2) {
+#pragma unroll
+      for (int k = 0; k + w < K; k += 2 * w) {
+        if (d[k + w] > d[k]) {
+          d[k] = d[k + w];
+          di[k] = di[k + w];
+        }
+      }
+    }
+    const float best = d[0];
+    const int best_i = di[0];
+    const unsigned bits = __float_as_uint(best);
+    const unsigned wmax = __reduce_max_sync(0xffffffffu, bits);
+    const unsigned widx = __reduce_min_sync(
+        0xffffffffu, bits == wmax ? static_cast<unsigned>(best_i) : UINT_MAX);
+    // every lane stores the same key and reads one slot: no branch
+    uint2* slot = slots[j & 1];
+    slot[warp] = make_uint2(wmax, widx);
+    __syncthreads();
+    const uint2 s = slot[lane];
+    const unsigned bmax = __reduce_max_sync(0xffffffffu, s.x);
+    picked = __reduce_min_sync(0xffffffffu, s.x == bmax ? s.y : UINT_MAX);
+    // the floor's xor may let a padding point win: stay inside the cloud
+    last = cloud[kFloor ? min(picked, static_cast<unsigned>(n - 1)) : picked];
+    if (t == 0) o[j] = static_cast<int>(picked);
   }
 }
 
-__global__ void __launch_bounds__(kFpsThreads)
-    fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
-               int m) {
-  extern __shared__ float smem[];
-  float* px = smem;
-  float* py = px + n;
-  float* pz = py + n;
-  float* dist = pz + n;
-  __shared__ float warp_val[kFpsThreads / 32];
-  __shared__ int warp_idx[kFpsThreads / 32];
-  __shared__ int picked;
-
-  const int b = blockIdx.x;
-  const float* p = xyz + static_cast<size_t>(b) * n * 3;
-  int* o = out + static_cast<size_t>(b) * m;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    px[i] = p[3 * i];
-    py[i] = p[3 * i + 1];
-    pz[i] = p[3 * i + 2];
-    dist[i] = 1e38f;
+template <bool kFloor>
+int launch(const float* xyz, int* out, int b, int n, int m,
+           cudaStream_t stream) {
+  const int threads = fps_threads(n);
+  const size_t smem = sizeof(float4) * static_cast<size_t>(n);
+  cudaError_t err = cudaSuccess;
+  switch (fps_points(n)) {
+#define BDM_FPS_CASE(K)                                                  \
+  case K:                                                                \
+    err = bdm_allow_smem(fps_kernel<K, kFloor>, smem);                   \
+    if (err != cudaSuccess) return static_cast<int>(err);                \
+    fps_kernel<K, kFloor><<<b, threads, smem, stream>>>(xyz, out, n, m); \
+    break;
+    BDM_FPS_CASE(1)
+    BDM_FPS_CASE(2)
+    BDM_FPS_CASE(4)
+    BDM_FPS_CASE(8)
+    BDM_FPS_CASE(16)
+#undef BDM_FPS_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (threadIdx.x == 0) o[0] = 0;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int last = 0;
-  for (int j = 1; j < m; ++j) {
-    const float lx = px[last], ly = py[last], lz = pz[last];
-    float best = -1.0f;
-    int best_i = n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float d = fminf(dist[i], sqdist(px[i], py[i], pz[i], lx, ly, lz));
-      dist[i] = d;
-      if (d > best) {  // indices rise within a thread: strict > keeps lowest
-        best = d;
-        best_i = i;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      argmax_pair(best, best_i, __shfl_down_sync(0xffffffffu, best, off),
-                  __shfl_down_sync(0xffffffffu, best_i, off));
-    }
-    if (lane == 0) {
-      warp_val[warp] = best;
-      warp_idx[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best = lane < nwarps ? warp_val[lane] : -1.0f;
-      best_i = lane < nwarps ? warp_idx[lane] : n;
-      for (int off = 16; off > 0; off >>= 1) {
-        argmax_pair(best, best_i, __shfl_down_sync(0xffffffffu, best, off),
-                    __shfl_down_sync(0xffffffffu, best_i, off));
-      }
-      if (lane == 0) {
-        picked = best_i;
-        o[j] = best_i;
-      }
-    }
-    __syncthreads();
-    last = picked;
-  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 BDM_EXPORT int bdm_fps(const float* xyz, int* out, int b, int n, int m,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(n);
-  cudaError_t err = bdm_allow_smem(fps_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<<<b, kFpsThreads, smem, stream>>>(xyz, out, n, m);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(xyz, out, b, n, m, stream);
 }
+
+// The same block and rounds without the distance work (a measurement of
+// the barrier and the reductions alone; its indices mean nothing).
+BDM_EXPORT int bdm_fps_round_floor(const float* xyz, int* out, int b, int n,
+                                   int m, cudaStream_t stream) {
+  return launch<true>(xyz, out, b, n, m, stream);
+}
+
+BDM_EXPORT int bdm_fps_threads(int n) { return fps_threads(n); }

@@ -32,6 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "bdm_fps": (_P, _P, _I, _I, _I, _P),
+    "bdm_fps_round_floor": (_P, _P, _I, _I, _I, _P),
     "bdm_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "bdm_interp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -39,10 +40,13 @@ _SIGNATURES = {
     "bdm_scatter_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # the dispatch rules of the two sources that hold two kernels
+    # the sources' own rules, which the wrappers mirror
     "bdm_attention_path": (_I, _I, _I),
     "bdm_conv3d_path": (_I, _I, _I, _I),
     "bdm_conv3d_n_tile": (_I,),
+    "bdm_fps_threads": (_I,),
+    "bdm_scatter_mean_vec": (_I, _I, _I),
+    "bdm_scatter_mean_lanes": (_I, _I, _I),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -2,6 +2,11 @@
 
 Replaces `furthest_point_sample_pallas` (bdm_tpu/ops/pallas/fps.py). A CPU
 tensor goes to the plain version; a CUDA tensor launches the kernel.
+
+The kernel runs one block a cloud; `threads(n)` is its block size (the
+source's `bdm_fps_threads`), and thread t holds the points t, t + T, ...
+`round_floor` runs the same block without the distance work: a measurement,
+not counted as a launch.
 """
 
 from __future__ import annotations
@@ -12,6 +17,14 @@ from bdm_tpu_torch.ops.cuda import _lib
 
 launches = 0          # kernel launches
 plain_cuda_calls = 0  # plain-version calls on CUDA tensors
+POINTS_A_THREAD = 8   # `kPointsAThread` of the source
+
+
+def threads(n: int) -> int:
+    """Threads of the block that samples a cloud of `n` points:
+    n / POINTS_A_THREAD rounded up to a warp, at most 1024."""
+    t = -(-n // POINTS_A_THREAD)
+    return min(1024, max(32, -(-t // 32) * 32))
 
 
 def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,3 +73,15 @@ def furthest_point_sample(coords: torch.Tensor,
     _lib.launch("bdm_fps", coords.data_ptr(), out.data_ptr(), b, n, m)
     launches += 1
     return out
+
+
+def round_floor(coords: torch.Tensor, num_samples: int) -> None:
+    """Launch the kernel's M - 1 rounds with the distance work left out
+    (`bdm_fps_round_floor`): the barrier, the reductions and the look-up
+    of the winner alone, to be timed. Not counted in `launches`."""
+    _lib.check(coords, "coords", (torch.float32,), 3)
+    b, n, _ = coords.shape
+    out = torch.empty((b, int(num_samples)), dtype=torch.int32,
+                      device=coords.device)
+    _lib.launch("bdm_fps_round_floor", coords.data_ptr(), out.data_ptr(), b,
+                n, int(num_samples))

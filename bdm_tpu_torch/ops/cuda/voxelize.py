@@ -10,6 +10,11 @@ summed as they are (the raw-sum contract of `scatter_sum_sorted_pallas`
 under `_scatter_augmented`). Output is the channel-last (B, R, R, R, C)
 grid, not the TPU's D-padded layout.
 
+The kernel gives each voxel row a group of lanes that walks it in vectors;
+`kernel_path` says how many elements a vector and lanes a voxel it takes
+for a pair of types and C (the source's `bdm_scatter_mean_vec` and
+`bdm_scatter_mean_lanes`).
+
 `scatter_mean` is differentiable in the features
 (`_avg_voxelize_ctx_bwd`): d out / d feature = grad[voxel(p)] / count, one
 gather, in the features' dtype.
@@ -23,6 +28,19 @@ from bdm_tpu_torch.ops.cuda import _lib
 
 launches = 0
 plain_cuda_calls = 0
+
+
+def kernel_path(in_dtype: torch.dtype, out_dtype: torch.dtype,
+                c: int) -> tuple[int, int]:
+    """-> (elements a vector, lanes a voxel): the most of 8, 4, 2, 1 that
+    divides C with the wider type at 16 bytes a vector; the row's vectors
+    rounded up to a power of two, at most 32."""
+    widest = max(in_dtype.itemsize, out_dtype.itemsize)
+    vec = next(v for v in (8, 4, 2, 1) if v * widest <= 16 and c % v == 0)
+    lanes = 1
+    while lanes < c // vec and lanes < 32:
+        lanes *= 2
+    return vec, lanes
 
 
 def scatter_mean_plain(features: torch.Tensor, order: torch.Tensor,
@@ -71,6 +89,10 @@ def _forward(features, order, ids_sorted, voxel_lo, resolution, out_dtype,
                          f"order {tuple(order.shape)}, voxel_lo "
                          f"{tuple(voxel_lo.shape)}, R={resolution}, "
                          f"out {out_dtype}")
+    vec = kernel_path(features.dtype, out_dtype, c)[0]
+    if features.data_ptr() % (vec * features.element_size()):
+        raise ValueError(f"scatter_mean: features must be "
+                         f"{vec * features.element_size()}-byte aligned")
     out = torch.empty((b,) + (resolution,) * 3 + (c,), dtype=out_dtype,
                       device=features.device)
     _lib.launch("bdm_scatter_mean", features.data_ptr(), order.data_ptr(),

@@ -17,7 +17,14 @@ Phases, in the order they run (any failure exits non-zero):
      also ragged and narrow shapes, the dispatch rule of the source against
      the wrapper's `kernel_path`, and, printed beside the new bfloat16
      time, the recorded time of the CUDA-core kernel that served bfloat16
-     before (a constant, so it stays out of the `kernels` line);
+     before (a constant, so it stays out of the `kernels` line); FPS also on
+     tie-heavy clouds (the integer lattice, exact duplicates) at every level
+     and at N that is no multiple of its block, with the time of its rounds
+     without the distance work (the floor of its design); scatter-mean with
+     its vector and lanes rule against the source's and float32 bit for bit
+     against the CPU; beside the times of fps and scatter-mean, those of
+     the kernels they replaced (`BEFORE_MS`); the float32 attention against the
+     float32 fused attention;
   a'. gradients: each differentiable wrapper forward through its kernel
      and backward on the card, against forward and backward of its plain
      version under PyTorch's own autograd on the card;
@@ -135,6 +142,13 @@ PREVIOUS_MS = {
                (512, 512, 8): 4.5892},
 }
 
+# Times of the FPS and scatter-mean kernels that the present ones replaced:
+# ms at B=8 on an NVIDIA H100 80GB HBM3 at 700.00 W, one launch between CUDA
+# events (PERF.md section 6 keeps them in rows 1, 6 and 7).
+BEFORE_MS = {"fps N4096 M1024": 1.0275, "scatter_mean bf16 C390 R32": 0.4598,
+          "scatter_mean f32 C64 R32 mean": 0.1144,
+          "scatter_mean f32 C64 R32 sum": 0.1093}
+
 
 # Phase a holds conv3d at the convs of PC2, PVD and the fusion network,
 # (Cin, Cout, R); an odd grid (R=9, the TPU's per-slab `conv3d_pallas`);
@@ -148,6 +162,14 @@ CONVS = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
 # ... and attention at (S, C): C 64 at the published widths, C 128 (the
 # kernel's widest) in PVD at twice the width
 ATTNS = [(4096, 64), (4096, 128)]
+# ... and scatter_mean at the voxel sites of PC2, PVD and the fusion
+# network, (C, R, N): 390 = PC2 stage-0 input; then those of PVD at twice
+# the width on 2,048 points
+SITES = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096),
+         (192, 8, 256), (256, 8, 64), (256, 8, 256), (128, 16, 1024),
+         (64, 32, 4096),
+         (3, 32, 2048), (64, 32, 2048), (128, 32, 2048), (192, 16, 1024),
+         (256, 16, 1024), (320, 8, 256), (512, 8, 64), (512, 8, 256)]
 
 # The shapes the paths gave the kernels whose shapes follow the model's
 # widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N).
@@ -211,6 +233,7 @@ def check_kernels(dev):
 
     res = {}
     b = 8
+    lib = _lib.library()
     # PVCNN2 levels (N, M, radius): FPS and ball query at every SA stage,
     # three-NN at every FP stage
     levels = [(4096, 1024, 0.1), (1024, 256, 0.2), (256, 64, 0.4),
@@ -221,6 +244,26 @@ def check_kernels(dev):
         if not torch.equal(idx, fps.furthest_point_sample_plain(pts[n], m)):
             fail(f"fps differs at N={n}, M={m}")
         pts[m] = ops.gather(pts[n], idx).contiguous()
+    # and on tie-heavy clouds at every level: the integer lattice (64
+    # points repeated: many exactly equal distances) and exact duplicates
+    # in shuffled order; then N that is no multiple of the block or of 32
+    lattice = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3,
+                                         indexing="ij"), -1).reshape(-1, 3)
+    for n, m in [(n, m) for n, m, _ in levels] + [(96, 96), (1000, 300),
+                                                    (64, 64)]:
+        half = randn(b, -(-n // 2), 3)
+        clouds = {"lattice": lattice.repeat(-(-n // 64), 1)[:n].expand(
+                      b, n, 3).contiguous().to(dev),
+                  "duplicates": torch.cat([half, half.flip(1)], 1)[
+                      :, torch.randperm(n, generator=g)].contiguous()}
+        if n % 32:
+            clouds["random"] = randn(b, n, 3)
+        for kind, x in clouds.items():
+            if not torch.equal(fps.furthest_point_sample(x, m),
+                               fps.furthest_point_sample_plain(x, m)):
+                fail(f"fps differs on the {kind} cloud at N={n}, M={m}")
+        if lib.bdm_fps_threads(n) != fps.threads(n):
+            fail(f"fps: the source's block for N={n} is not `threads`")
     # the first level of a cloud of 2,048 points (PVD at twice the width)
     pts[2048] = pts[4096][:, :2048].contiguous()
     idx2 = fps.furthest_point_sample(pts[2048], 1024)
@@ -240,7 +283,12 @@ def check_kernels(dev):
     c0, p0 = pts[1024], pts[4096]
     res["fps"] = dict(
         max_abs_err=0.0,
-        ms=timed_ms(lambda: fps.furthest_point_sample(p0, 1024)),
+        ms=timed_ms(lambda: fps.furthest_point_sample(p0, 1024), inner=10),
+        ms_one_launch=timed_ms(lambda: fps.furthest_point_sample(p0, 1024)),
+        # the same block's M - 1 rounds without the distance work: the
+        # barrier, the reductions and the winner's look-up
+        round_floor_ms=timed_ms(lambda: fps.round_floor(p0, 1024), inner=10),
+        timing="10 launches back to back behind a matmul",
         plain_ms=timed_ms(
             lambda: fps.furthest_point_sample_plain(p0, 1024), 3, 1),
         library_ms=None,
@@ -302,8 +350,8 @@ def check_kernels(dev):
             ).reshape(-1, 3)
     wb = w.to(torch.bfloat16).reshape(-1, 3)
     table = f.reshape(b * m, c)
-    lib = F.embedding_bag(flat, table, per_sample_weights=wb, mode="sum")
-    rel_err(lib.reshape(out.shape), out, 2 ** -7, "embedding_bag yardstick")
+    bag = F.embedding_bag(flat, table, per_sample_weights=wb, mode="sum")
+    rel_err(bag.reshape(out.shape), out, 2 ** -7, "embedding_bag yardstick")
     res["interp_mm"] = dict(
         max_abs_err=err,
         ms=by_shape["N4096_M1024_C128"], ms_by_shape=by_shape,
@@ -351,17 +399,19 @@ def check_kernels(dev):
         # one add a feature
         **bound([rows, ids, sums], rows.numel(), "f32"))
 
-    # voxel sites of PC2, PVD and the fusion network: (C, R, N); 390 = PC2
-    # stage-0 input; then those of PVD at twice the width on 2,048 points
-    sites = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096),
-             (192, 8, 256), (256, 8, 64), (256, 8, 256), (128, 16, 1024),
-             (64, 32, 4096),
-             (3, 32, 2048), (64, 32, 2048), (128, 32, 2048), (192, 16, 1024),
-             (256, 16, 1024), (320, 8, 256), (512, 8, 64), (512, 8, 256)]
     ctxs = {}
     err = 0.0
-    for c, r, n in sites:
+    for c, r, n in SITES:
         ctx = ctxs.setdefault((r, n), ops.make_voxel_context(pts[n], r))
+        for ti in _lib.DTYPE_CODES:
+            for to in _lib.DTYPE_CODES:
+                src = (lib.bdm_scatter_mean_vec(_lib.DTYPE_CODES[ti],
+                                                _lib.DTYPE_CODES[to], c),
+                       lib.bdm_scatter_mean_lanes(_lib.DTYPE_CODES[ti],
+                                                  _lib.DTYPE_CODES[to], c))
+                if src != voxelize.kernel_path(ti, to, c):
+                    fail(f"scatter_mean C={c} {ti} -> {to}: the source's "
+                         f"vector and lanes {src} are not `kernel_path`")
         # means and, with divide off, raw sums (the float32 unpadded
         # contract of the TPU's `scatter_sum_sorted_pallas`)
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 8e-3)):
@@ -373,8 +423,21 @@ def check_kernels(dev):
                 err = max(err, rel_err(
                     grid, voxelize.scatter_mean_plain(*args), tol,
                     f"scatter_mean C={c} R={r} {dt} divide={divide}"))
-    f0 = randn(b, 4096, 390, dtype=torch.bfloat16)
     ctx0 = ctxs[(32, 4096)]
+    # float32 sums in the reference's order: equal, bit for bit, to the
+    # plain version on the CPU (the card's `index_add_` adds with atomics)
+    for c in (390, 64):
+        f = randn(b, 4096, c)
+        for divide in (True, False):
+            args = (f, ctx0.order, ctx0.ids_sorted, ctx0.voxel_lo, 32,
+                    torch.float32, divide)
+            on_cpu = voxelize.scatter_mean_plain(
+                *(t.cpu() if torch.is_tensor(t) else t for t in args))
+            if not torch.equal(voxelize.scatter_mean(*args, ids=ctx0.ids)
+                               .cpu(), on_cpu):
+                fail(f"scatter_mean float32 C={c} R=32 divide={divide} is "
+                     f"not the CPU's plain version bit for bit")
+    f0 = randn(b, 4096, 390, dtype=torch.bfloat16)
     vargs = (f0, ctx0.order, ctx0.ids_sorted, ctx0.voxel_lo, 32,
              torch.bfloat16)
     vmean = partial(voxelize.scatter_mean, ids=ctx0.ids)
@@ -402,19 +465,31 @@ def check_kernels(dev):
         src = src.reshape(-1, c)
         acc32 = torch.empty((b * 32 ** 3, c), device=dev)
         return dict(
-            ms=timed_ms(lambda: vmean(*a)),
+            ms=timed_ms(lambda: vmean(*a), inner=20),
+            ms_one_launch=timed_ms(lambda: vmean(*a)),
             plain_ms=timed_ms(lambda: voxelize.scatter_mean_plain(*a)),
             library_ms=timed_ms(lambda: acc32.zero_().index_add_(0, dst,
-                                                                 src)),
+                                                                 src),
+                                inner=20),
+            library_ms_one_launch=timed_ms(
+                lambda: acc32.zero_().index_add_(0, dst, src)),
             **bound([f, ctx0.order, ctx0.voxel_lo, out],
                     b * 4096 * c * (2 if divide else 1), "f32"))
 
+    # kernel and library call as 20 calls back to back behind a matmul (one
+    # launch is shorter than the host takes to launch it); beside them one
+    # launch between events, as the kernels they replaced were timed
     res["scatter_mean"] = dict(
         f32_c64_r32_mean=f32_site(64, True),
         f32_c64_r32_sum=f32_site(64, False),
-        max_abs_err=err, ms=timed_ms(lambda: vmean(*vargs)),
+        max_abs_err=err, ms=timed_ms(lambda: vmean(*vargs), inner=20),
+        ms_one_launch=timed_ms(lambda: vmean(*vargs)),
+        timing="20 launches back to back behind a matmul",
         plain_ms=timed_ms(lambda: voxelize.scatter_mean_plain(*vargs)),
-        library_ms=timed_ms(lambda: acc.zero_().index_add_(0, dst, rows)),
+        library_ms=timed_ms(lambda: acc.zero_().index_add_(0, dst, rows),
+                            inner=20),
+        library_ms_one_launch=timed_ms(
+            lambda: acc.zero_().index_add_(0, dst, rows)),
         # a divide and an add a feature
         **bound([f0, ctx0.order, ctx0.voxel_lo, grid0], b * 4096 * 390 * 2,
                 "f32"))
@@ -425,7 +500,6 @@ def check_kernels(dev):
     # the N tile, and an odd Cout
     ragged = sorted({(cin, 32, 9) for cin, _, _ in convs}) + [
         (64, 130, 9), (16, 7, 5)]
-    lib = _lib.library()
     err = 0.0
     for cin, cout, r in convs + ragged:
         wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
@@ -511,8 +585,26 @@ def check_kernels(dev):
                 lambda: F.scaled_dot_product_attention(*heads, scale=1.0)),
             **bound([*qkv, out], 4 * s ** 2 * c * b, "bf16"))
 
+    def attn_times_f32(s, c):
+        """The float32 CUDA-core kernel at (S, C) against the float32 fused
+        attention with scale 1; bound at the float32 peak."""
+        if attention.kernel_path(torch.float32, s, c) != "simt":
+            fail(f"attention S={s} C={c} float32 is not on the CUDA cores")
+        qkv = [randn(b, s, c, scale=0.3) for _ in range(3)]
+        out = attention.attention(*qkv)
+        heads = [t[:, None] for t in qkv]
+        rel_err(F.scaled_dot_product_attention(*heads, scale=1.0)[:, 0], out,
+                1e-3, "scaled_dot_product_attention float32 yardstick")
+        return dict(
+            ms=timed_ms(lambda: attention.attention(*qkv)),
+            plain_ms=timed_ms(lambda: attention.attention_plain(*qkv)),
+            library_ms=timed_ms(
+                lambda: F.scaled_dot_product_attention(*heads, scale=1.0)),
+            **bound([*qkv, out], 4 * s ** 2 * c * b, "f32"))
+
     wide = attn_times(4096, 128)
-    res["attention"] = dict(attn_times(4096, 64), s4096_c128=wide)
+    res["attention"] = dict(attn_times(4096, 64), s4096_c128=wide,
+                            f32_s4096_c64=attn_times_f32(4096, 64))
     # held but on no path: S of an odd grid (729 = 9^3: a ragged last key
     # tile and query tile) at narrow and wide C, rows peaked by a larger
     # scale; S below one tile; a C that is no multiple of 8 (CUDA cores)
@@ -548,8 +640,22 @@ def check_kernels(dev):
             ms = now[name][shape]
             print(f"{name} {shape} bf16: {ms:.4f} ms on the tensor cores "
                   f"(CUDA-core kernel before: {before} ms, {before / ms:.1f}x)")
+    fr, sm = res["fps"], res["scatter_mean"]
+    print(f"fps round floor N=4096 M=1024: {fr['round_floor_ms']:.4f} ms "
+          f"(operations bound {fr['bound_ms']:.5f} ms, kernel "
+          f"{fr['ms']:.4f} ms)")
+    redesigned = {
+        "fps N4096 M1024": fr,
+        "scatter_mean bf16 C390 R32": sm,
+        "scatter_mean f32 C64 R32 mean": sm["f32_c64_r32_mean"],
+        "scatter_mean f32 C64 R32 sum": sm["f32_c64_r32_sum"]}
+    for key, before in BEFORE_MS.items():
+        r = redesigned[key]
+        print(f"{key}: {r['ms']:.4f} ms back to back, "
+              f"{r['ms_one_launch']:.4f} ms one launch (before: {before} ms "
+              f"one launch, {before / r['ms_one_launch']:.2f}x)")
     return res, {"conv3d": set(convs), "attention": set(attns),
-                 "scatter_mean": set(sites)}
+                 "scatter_mean": set(SITES)}
 
 
 def check_gradients(dev):

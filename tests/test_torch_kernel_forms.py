@@ -14,7 +14,18 @@ surrounds the CUDA code and can be said in PyTorch.
     padding is zero;
   * the cache of packed weights: refreshed after an in-place update and
     after `load_state_dict`, kept otherwise;
-  * `kernel_path` at every shape `chip_smoke.py` holds on the card.
+  * `kernel_path` at every shape `chip_smoke.py` holds on the card;
+  * the block reduction of the FPS kernel (`csrc/fps.cu`): strided
+    ownership, a thread's pairwise tree in which the higher indices win
+    only by a strict >, the warp's max over the
+    distances' bits and then its min over the indices of the lanes that
+    hold it, the block step over double-buffered slots, padding points;
+    indices exact against the plain version and the Pallas kernel in
+    interpret mode, on random clouds, the integer lattice (many exact
+    ties), exact duplicates and N that is no multiple of T or of 32;
+  * the split of a voxel row into lanes and vectors of the scatter-mean
+    kernel (`csrc/voxelize.cu`): every channel written once, sums in the
+    run's order, one rounding; equal to the plain version bit for bit.
 """
 
 import importlib.util
@@ -28,8 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from bdm_tpu.ops.pallas.attention import attention_pallas
+from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
+from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.pvcnn import VoxConv
-from bdm_tpu_torch.ops.cuda import attention as k_attn, conv3d as k_conv
+from bdm_tpu_torch.ops.cuda import (attention as k_attn, conv3d as k_conv,
+                                    fps as k_fps, voxelize as k_vox)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -202,3 +216,197 @@ def test_attention_kernel_path(s, c):
 
 def test_attention_kernel_path_odd_width():
     assert k_attn.kernel_path(torch.bfloat16, 200, 12) == "simt"
+
+
+# ------------------------------------------------------------------ FPS
+
+NO_INDEX = 2 ** 32 - 1   # UINT_MAX: a key that loses every min
+
+
+def fps_block(coords, m, nt):
+    """`fps_kernel` of csrc/fps.cu in PyTorch, for a block of `nt` threads:
+    thread t holds the points t, t + nt, ... (K of them, K a power of two,
+    padding at distance 0 past N)."""
+    b, n, _ = coords.shape
+    k = 1 << (-(-n // nt) - 1).bit_length()
+    total = k * nt
+    pts = torch.zeros(b, total, 3)
+    pts[:, :n] = coords
+    dist = torch.zeros(b, total)
+    dist[:, :n] = 1e38
+    index = torch.arange(total).reshape(k, nt)      # [slot, thread]
+    nwarps = nt // 32
+    live = torch.arange(32) < nwarps                # lanes reading a slot
+    slots = torch.zeros(2, b, 32, 2, dtype=torch.int64)
+    out = torch.zeros(b, m, dtype=torch.int32)
+    last = pts[:, 0]
+    rows = torch.arange(b)
+    for j in range(1, m):
+        dist = torch.minimum(dist, k_fps.sqdist(pts, last[:, None]))
+        d = dist.reshape(b, k, nt)
+        # a thread's argmax as a pairwise tree: the right side, whose
+        # indices are higher, wins only by a strict >
+        vals = [d[:, slot] for slot in range(k)]
+        idxs = [index[slot].expand(b, nt) for slot in range(k)]
+        w = 1
+        while w < k:
+            for slot in range(0, k - w, 2 * w):
+                upd = vals[slot + w] > vals[slot]
+                vals[slot] = torch.where(upd, vals[slot + w], vals[slot])
+                idxs[slot] = torch.where(upd, idxs[slot + w], idxs[slot])
+            w *= 2
+        best, best_i = vals[0], idxs[0]
+        # distances are >= +0: their bits order as the floats do
+        bits = best.view(torch.int32).long().reshape(b, nwarps, 32)
+        wmax = bits.amax(-1)
+        widx = torch.where(bits == wmax[..., None],
+                           best_i.reshape(b, nwarps, 32), NO_INDEX).amin(-1)
+        slots[j & 1, :, :nwarps] = torch.stack([wmax, widx], -1)
+        # after the barrier every warp reduces the slots of this parity
+        sb = torch.where(live, slots[j & 1, ..., 0], 0)
+        si = torch.where(live, slots[j & 1, ..., 1], NO_INDEX)
+        picked = torch.where(sb == sb.amax(-1, keepdim=True), si,
+                             NO_INDEX).amin(-1)
+        assert (picked < n).all()
+        out[:, j] = picked.to(torch.int32)
+        last = pts[rows, picked]
+    return out
+
+
+def _fps_cloud(kind, n):
+    rng = np.random.default_rng(n)
+    if kind == "random":
+        return rng.standard_normal((2, n, 3)).astype(np.float32) * 0.3
+    if kind == "lattice":           # 64 distinct points, repeated
+        g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+        pts = np.concatenate([g] * (n // len(g) + 1))[:n].astype(np.float32)
+        return np.broadcast_to(pts, (2, n, 3)).copy()
+    half = rng.standard_normal((2, -(-n // 2), 3)).astype(np.float32)
+    dup = np.concatenate([half, half[:, ::-1]], 1)[:, :n]   # duplicates
+    return np.ascontiguousarray(dup[:, rng.permutation(n)])
+
+
+@pytest.mark.parametrize("kind,n,m", [
+    ("random", 256, 64), ("random", 1000, 200), ("lattice", 96, 96),
+    ("lattice", 256, 100), ("duplicates", 200, 120), ("random", 64, 64),
+    ("lattice", 64, 64)], ids=lambda v: str(v))
+@pytest.mark.parametrize("nt", [None, 32, 64, 1024],
+                         ids=["rule", "T32", "T64", "T1024"])
+def test_fps_block_reduction(kind, n, m, nt):
+    x = _fps_cloud(kind, n)
+    nt = nt or k_fps.threads(n)
+    got = fps_block(torch.from_numpy(x), m, nt)
+    want = k_fps.furthest_point_sample_plain(torch.from_numpy(x), m)
+    assert torch.equal(got, want)
+    pallas = furthest_point_sample_pallas(jnp.asarray(x), m, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+
+
+def test_fps_lowest_lane_is_not_lowest_index():
+    """Two tied maxima in one warp: lane 1 holds index 1 + T, lane 2
+    index 2. A first-lane pick would take 1 + T; the min over indices
+    takes 2."""
+    n, nt = 128, 64
+    x = torch.zeros(1, n, 3)
+    x[0, 2] = torch.tensor([5.0, 0.0, 0.0])
+    x[0, 1 + nt] = torch.tensor([-5.0, 0.0, 0.0])
+    assert fps_block(x, 2, nt)[0, 1] == 2
+    assert k_fps.furthest_point_sample_plain(x, 2)[0, 1] == 2
+
+
+@pytest.mark.parametrize("n", [64, 96, 256, 1000, 1024, 2048, 4096, 14528])
+def test_fps_threads(n):
+    t = k_fps.threads(n)
+    assert t % 32 == 0 and 32 <= t <= 1024
+    k = -(-n // t)
+    assert k <= 16                     # the source's largest K
+    assert t == 1024 or t >= n / k_fps.POINTS_A_THREAD
+
+
+# --------------------------------------------------------- scatter-mean
+
+def scatter_mean_lanes(features, order, voxel_lo, r, out_dtype, divide,
+                       threads=128):
+    """`scatter_mean_kernel` of csrc/voxelize.cu in PyTorch: block and
+    group to voxel, lane and pass to vector, vector to channels; the sum of
+    each channel over the voxel's run in its order, in float32, rounded
+    once."""
+    b, n, c = features.shape
+    vec, lanes = k_vox.kernel_path(features.dtype, out_dtype, c)
+    nvec = c // vec
+    per_pass = 1 if nvec <= lanes else 16 // vec
+    voxels = b * r ** 3
+    per_block = threads // lanes
+    # the channels each thread of a block stores, pass by pass
+    chans = [[] for _ in range(threads)]
+    for tid in range(threads):
+        lane = tid % lanes
+        base = lane
+        while base < nvec:
+            for u in range(per_pass):
+                e = base + u * lanes
+                if e < nvec:
+                    chans[tid].extend(range(e * vec, e * vec + vec))
+            base += lanes * per_pass
+    for g in range(per_block):         # every group covers its row once
+        group = sum((chans[t] for t in range(g * lanes, (g + 1) * lanes)),
+                    [])
+        assert sorted(group) == list(range(c))
+    # the voxel of each group: consecutive in a block, so a block writes
+    # one contiguous span of the grid
+    blocks = -(-voxels // per_block)
+    vg = (torch.arange(blocks)[:, None] * per_block
+          + torch.arange(per_block)[None]).reshape(-1)
+    assert torch.equal(vg[:voxels], torch.arange(voxels))
+    # the run of each voxel, walked in order
+    lo = voxel_lo[:, :-1].reshape(-1).long()
+    hi = voxel_lo[:, 1:].reshape(-1).long()
+    bidx = torch.arange(voxels) // r ** 3
+    cnt = ((hi - lo).float() if divide else torch.ones(voxels))[:, None]
+    acc = torch.zeros(voxels, c)
+    for step in range(int((hi - lo).max())):
+        p = lo + step
+        live = p < hi
+        pt = order[bidx, p.clamp(max=n - 1)].long()
+        x = features[bidx, pt].float()
+        acc = torch.where(live[:, None], acc + x / cnt, acc)
+    return acc.to(out_dtype).reshape((b,) + (r,) * 3 + (c,))
+
+
+@pytest.mark.parametrize("divide", [True, False], ids=["mean", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 3, 7, 32, 64, 390, 512])
+def test_scatter_mean_lanes(c, dtype, divide):
+    rng = np.random.default_rng(c)
+    pts = torch.from_numpy(rng.standard_normal((2, 300, 3))
+                           .astype(np.float32) * 0.3)
+    # crowd a third of the points into one voxel
+    pts[:, :100] = pts[:, :1]
+    ctx = ops.make_voxel_context(pts, 4)
+    f = torch.from_numpy(rng.standard_normal((2, 300, c))
+                         .astype(np.float32)).to(dtype)
+    args = (f, ctx.order, ctx.voxel_lo, 4, dtype, divide)
+    got = scatter_mean_lanes(*args)
+    want = k_vox.scatter_mean_plain(f, ctx.order, ctx.ids_sorted,
+                                    ctx.voxel_lo, 4, dtype, divide)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c,r,n", chip_smoke.SITES)
+def test_scatter_mean_path(c, r, n):
+    """The rule of `kernel_path` at every site `chip_smoke.py` holds (where
+    it is compared with the source's): 16-byte vectors when the row
+    allows, the widest that divides C otherwise, lanes enough for the row
+    up to a warp."""
+    for dt in (torch.float32, torch.bfloat16):
+        vec, lanes = k_vox.kernel_path(dt, dt, c)
+        size = dt.itemsize
+        assert c % vec == 0 and vec * size <= 16
+        assert (vec * size == 16) == (c * size % 16 == 0)
+        assert lanes == min(32, 1 << (c // vec - 1).bit_length())
+    assert k_vox.kernel_path(torch.bfloat16, torch.bfloat16, 390) == (2, 32)
+    assert k_vox.kernel_path(torch.float32, torch.float32, 64) == (4, 16)
+    assert k_vox.kernel_path(torch.bfloat16, torch.float32, 3) == (1, 4)

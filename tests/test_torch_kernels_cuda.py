@@ -17,7 +17,12 @@ order that changes from run to run) and bit for bit against the CPU's
 versions under PyTorch's autograd. bfloat16 attention (C a multiple of 8)
 and every bfloat16 conv run on the tensor cores, float32 on the CUDA cores:
 both are held here, at ragged and narrow shapes too, and the counters say
-which kernel a call took.
+which kernel a call took. FPS is held on tie-heavy clouds (the integer
+lattice, exact duplicates) at every PVCNN2 level and at N that is no
+multiple of the block; the scatter-mean with every point in one voxel and
+with every point in a voxel of its own, at row widths that take each vector
+width, bit for bit against the plain version on the CPU (one rounding of
+float32 sums in the same order).
 """
 
 import pytest
@@ -263,3 +268,83 @@ def test_conv3d_takes_a_batch_slice_of_an_odd_grid(dev, cin):
     bias = _cloud(dev, 7, seed=42) * 0.1
     out = k_conv.conv3d(x, wt, bias)
     assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-2
+
+
+LEVELS = [(4096, 1024), (1024, 256), (256, 64), (64, 16)]
+
+
+def _tie_cloud(dev, kind, n, b=4):
+    if kind == "lattice":        # 64 points repeated: exactly equal distances
+        g = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3,
+                                       indexing="ij"), -1).reshape(-1, 3)
+        return g.repeat(-(-n // 64), 1)[:n].expand(b, n, 3).contiguous().to(
+            dev)
+    half = _cloud(dev, b, -(-n // 2), 3, seed=n)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(n))
+    return torch.cat([half, half.flip(1)], 1)[:, perm.to(dev)].contiguous()
+
+
+@pytest.mark.parametrize("kind", ["lattice", "duplicates"])
+@pytest.mark.parametrize("n,m", LEVELS, ids=lambda v: str(v))
+def test_fps_ties_at_every_level(dev, kind, n, m):
+    x = _tie_cloud(dev, kind, n)
+    assert torch.equal(k_fps.furthest_point_sample(x, m),
+                       k_fps.furthest_point_sample_plain(x, m))
+
+
+@pytest.mark.parametrize("n,m", [(96, 96), (1000, 300), (64, 64),
+                                 (2048, 1024)], ids=lambda v: str(v))
+def test_fps_odd_sizes(dev, n, m):
+    """N that is no multiple of the block or of 32, M = N; the source's
+    block size is the wrapper's rule."""
+    for x in (_cloud(dev, 3, n, 3, seed=n), _tie_cloud(dev, "lattice", n)):
+        assert torch.equal(k_fps.furthest_point_sample(x, m),
+                           k_fps.furthest_point_sample_plain(x, m))
+    assert _lib.library().bdm_fps_threads(n) == k_fps.threads(n)
+
+
+@pytest.mark.parametrize("layout", ["one-voxel", "distinct"])
+@pytest.mark.parametrize("divide", [True, False], ids=["mean", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 3, 7, 390, 512])
+def test_scatter_mean_extremes(dev, c, dtype, divide, layout):
+    """All points in one voxel (a long run, every other voxel empty) or
+    each in its own; equal to the CPU's plain version bit for bit."""
+    if layout == "one-voxel":
+        ctx = ops.make_voxel_context(torch.full((2, 300, 3), 0.25,
+                                                device=dev), 8,
+                                     normalize=False)
+        r = 8
+    else:
+        g = torch.stack(torch.meshgrid(*[torch.arange(8.0)] * 3,
+                                       indexing="ij"), -1).reshape(-1, 3)
+        perm = torch.randperm(512, generator=torch.Generator().manual_seed(c))
+        ctx = ops.make_voxel_context(g[perm].expand(2, 512, 3).to(dev), 16)
+        r = 16
+    counts = ctx.voxel_lo[:, 1:] - ctx.voxel_lo[:, :-1]
+    assert counts.max() == (300 if layout == "one-voxel" else 1)
+    n = ctx.order.shape[1]
+    f = _cloud(dev, 2, n, c, seed=c).to(dtype)
+    args = (f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, r, dtype, divide)
+    got = k_vox.scatter_mean(*args, ids=ctx.ids)
+    want = k_vox.scatter_mean_plain(
+        *(t.cpu() if torch.is_tensor(t) else t for t in args))
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    code = _lib.DTYPE_CODES[dtype]
+    lib = _lib.library()
+    assert (lib.bdm_scatter_mean_vec(code, code, c),
+            lib.bdm_scatter_mean_lanes(code, code, c)) == \
+        k_vox.kernel_path(dtype, dtype, c)
+
+
+def test_scatter_mean_refuses_misaligned_features(dev):
+    """A view that starts off the vector's alignment raises instead of
+    reading across it."""
+    x = _cloud(dev, 2, 100, 3, seed=1)
+    ctx = ops.make_voxel_context(x, 8)
+    flat = torch.zeros(2 * 100 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    f = flat[1:].view(2, 100, 64)
+    with pytest.raises(ValueError):
+        k_vox.scatter_mean(f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 8,
+                           torch.bfloat16, ids=ctx.ids)
