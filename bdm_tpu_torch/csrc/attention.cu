@@ -33,11 +33,24 @@
 //
 // `attention_simt_kernel`: float32 (the plain version multiplies in full
 // float32 and is held to 1e-4, which one TF32 product does not meet) and
-// any bfloat16 C that is not a multiple of 8. float32 FMAs on the CUDA
-// cores: one block of 256 threads per (cloud, 64-query tile) walks the keys
-// in tiles of 64 with an online softmax; the query tile, the key and value
-// tiles and the 64 x 64 probability tile live in shared memory; each thread
-// keeps a quarter of one query's output row in registers.
+// any bfloat16 C that is not a multiple of 8. Exact float32 FMAs on the
+// CUDA cores, the FlashAttention-2 dataflow. Bound, as it is written, by
+// shared-memory loads and FMA issue: its design is that every 16-byte load
+// from shared memory feeds 10-16 FMAs. Eight lanes share a query row: a
+// lane computes the logits of TQ queries x 8 keys (keys tk + 8j, so the
+// eight lanes' float4 reads of K fall 4 banks apart) from float4 reads of
+// row-major Q and K tiles (8 + TQ loads a 4-channel step for 32 TQ FMAs);
+// the row maximum and sum are reduced by three shuffles over the eight
+// lanes, so every thread works in the softmax; P goes once to shared
+// memory, key-major, and O += P V is a micro-tile of TQ queries x C / 8
+// channels a lane (channels 4 tk + 32 ct). TQ 8 and 256 threads (256
+// queries a block) up to C 64; TQ 4 and 128 threads at C 128, where a
+// lane's output rows would not fit in registers. K and V tiles of 64 keys
+// arrive in a two-stage ring of 16-byte `cp.async` copies (4-byte ones when
+// C % 4 != 0; bfloat16 is widened through registers) under the products of
+// the tile before: two barriers a tile. Rounding, masking and the row sum
+// are those of the tensor-core kernel, the probability rounded to v's type
+// (the identity at float32).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -296,126 +309,272 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
 
 // ------------------------------------------------------------------ CUDA cores
 
-constexpr int kAQ = 64;
-constexpr int kAK = 64;
-constexpr int kAttnThreads = 256;
-constexpr int kPerThread = kMaxC / 4;
+constexpr int kSimtK = 64;                      // keys a tile
+constexpr int kRowLanes = 8;                    // lanes that share a query row
+constexpr int kLaneKeys = kSimtK / kRowLanes;   // keys a lane: tk + 8 j
 
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
+// The block by the padded channel width CP: TQ queries a thread, THREADS
+// threads, so TQ * THREADS / 8 queries a block. At CP 128 a thread's output
+// rows (TQ x CP / 8 floats) would not fit in registers with TQ 8.
+template <int CP>
+struct SimtShape {
+  static constexpr int TQ = CP <= 64 ? 8 : 4;
+  static constexpr int THREADS = CP <= 64 ? 256 : 128;
+  static constexpr int BQ = TQ * THREADS / kRowLanes;
+};
+
+template <int CP>
+constexpr size_t simt_smem_bytes() {
+  constexpr int BQ = SimtShape<CP>::BQ;
+  return sizeof(float) * (static_cast<size_t>(BQ) * CP +
+                          2 * kSimtK * (CP + 4) + 2 * kSimtK * CP +
+                          kSimtK * (BQ + 4));
+}
+
+// Stage `nrows` rows of CP float32 channels at `dst` (row pitch PITCH
+// floats); rows from `s` on and channels from `c` on become zeros. float32
+// by 16-byte `cp.async` where every row is 16-byte aligned (`vec16`), else
+// by 4-byte ones; bfloat16 through registers, widened to float32.
+template <int CP, int PITCH, int THREADS, typename T>
+__device__ __forceinline__ void stage_simt(float* dst, const T* src, int row0,
+                                           int nrows, int s, int c,
+                                           bool vec16, int tid) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec16) {
+      constexpr int kPieces = CP / 4;
+      for (int e = tid; e < nrows * kPieces; e += THREADS) {
+        const int rr = e / kPieces, piece = e % kPieces;
+        const int row = row0 + rr;
+        const bool ok = row < s && piece * 4 < c;
+        cp_async16(smem_u32(dst + rr * PITCH + piece * 4),
+                   ok ? src + static_cast<size_t>(row) * c + piece * 4 : src,
+                   ok ? 16 : 0);
+      }
+      return;
+    }
+  }
+  for (int e = tid; e < nrows * CP; e += THREADS) {
+    const int rr = e / CP, ch = e % CP;
+    const int row = row0 + rr;
+    const bool ok = row < s && ch < c;
+    const T* from = ok ? src + static_cast<size_t>(row) * c + ch : src;
+    if constexpr (sizeof(T) == 4)
+      cp_async4(smem_u32(dst + rr * PITCH + ch), from, ok ? 4 : 0);
+    else
+      dst[rr * PITCH + ch] = ok ? to_f32(*from) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <typename T, int CP>
+__global__ void __launch_bounds__(SimtShape<CP>::THREADS, 1)
     attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ out, int s,
-                          int c) {
-  extern __shared__ float sm[];
-  const int ld = c + 1;
-  float* qs = sm;
-  float* ks = qs + kAQ * ld;
-  float* vs = ks + kAK * ld;
-  float* ps = vs + kAK * ld;            // [kAQ][kAK + 1]
-  float* row_max = ps + kAQ * (kAK + 1);
-  float* row_sum = row_max + kAQ;
-  float* row_scale = row_sum + kAQ;
+                          const T* __restrict__ v, T* __restrict__ out,
+                          int s, int c, int vec16) {
+  constexpr int TQ = SimtShape<CP>::TQ;
+  constexpr int THREADS = SimtShape<CP>::THREADS;
+  constexpr int BQ = SimtShape<CP>::BQ;
+  constexpr int KP = CP + 4;    // K rows: the 8 lanes of a row group read
+                                // 8 keys, 4 banks apart
+  constexpr int PP = BQ + 4;    // P rows (one a key): the same
+  constexpr int CT = CP / 32;   // float4s of V (and of O) a lane, 32 apart
+  extern __shared__ __align__(16) float sm[];
+  float* q_s = sm;                          // [BQ][CP]
+  float* k_s = q_s + BQ * CP;               // [2][kSimtK][KP]
+  float* v_s = k_s + 2 * kSimtK * KP;       // [2][kSimtK][CP]
+  float* p_s = v_s + 2 * kSimtK * CP;       // [kSimtK][PP], key-major
 
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kAQ;
   const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(b) * s * c;
-  const T* qb = q + base;
+  // keys tk + 8 j and channels 4 tk + 32 ct; rows q0 .. q0 + TQ - 1
+  const int tk = tid & (kRowLanes - 1);
+  const int q0 = (tid / kRowLanes) * TQ;
+  const int qb = blockIdx.x * BQ;
+  const size_t base = static_cast<size_t>(blockIdx.y) * s * c;
   const T* kb = k + base;
   const T* vb = v + base;
 
-  for (int e = tid; e < kAQ * c; e += kAttnThreads) {
-    const int qi = e / c, ch = e % c;
-    qs[qi * ld + ch] =
-        q0 + qi < s ? to_f32(qb[static_cast<size_t>(q0 + qi) * c + ch]) : 0.f;
-  }
-  if (tid < kAQ) {
-    row_max[tid] = -INFINITY;
-    row_sum[tid] = 0.0f;
-  }
-  const int my_q = tid >> 2;
-  const int part = tid & 3;
-  float acc[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.0f;
+  stage_simt<CP, CP, THREADS>(q_s, q + base, qb, BQ, s, c, vec16, tid);
+  stage_simt<CP, KP, THREADS>(k_s, kb, 0, kSimtK, s, c, vec16, tid);
+  stage_simt<CP, CP, THREADS>(v_s, vb, 0, kSimtK, s, c, vec16, tid);
+  const float* q_rows = q_s + q0 * CP;
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < s; k0 += kAK) {
-    __syncthreads();  // the previous tile's products are done
-    for (int e = tid; e < kAK * c; e += kAttnThreads) {
-      const int kj = e / c, ch = e % c;
-      const bool ok = k0 + kj < s;
-      const size_t off = static_cast<size_t>(k0 + kj) * c + ch;
-      ks[kj * ld + ch] = ok ? to_f32(kb[off]) : 0.f;
-      vs[kj * ld + ch] = ok ? to_f32(vb[off]) : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < kAQ * kAK; e += kAttnThreads) {
-      const int qi = e / kAK, kj = e % kAK;
-      float dot = 0.0f;
-      for (int ch = 0; ch < c; ++ch)
-        dot = fmaf(qs[qi * ld + ch], ks[kj * ld + ch], dot);
-      ps[qi * (kAK + 1) + kj] = k0 + kj < s ? dot : -INFINITY;
-    }
-    __syncthreads();
-    if (tid < kAQ) {
-      float* prow = ps + tid * (kAK + 1);
-      float tile_max = -INFINITY;
-      for (int kj = 0; kj < kAK; ++kj) tile_max = fmaxf(tile_max, prow[kj]);
-      const float m_old = row_max[tid];
-      const float m_new = fmaxf(m_old, tile_max);
-      const float scale = expf(m_old - m_new);  // 0 on the first tile
-      float l = row_sum[tid] * scale;
-      for (int kj = 0; kj < kAK; ++kj) {
-        const float p = expf(prow[kj] - m_new);
-        l += p;
-        prow[kj] = to_f32(from_f32<T>(p));  // weights in v's type
-      }
-      row_max[tid] = m_new;
-      row_sum[tid] = l;
-      row_scale[tid] = scale;
-    }
-    __syncthreads();
-    const float scale = row_scale[my_q];
-    const float* prow = ps + my_q * (kAK + 1);
+  float o[TQ][CT][4];
+  float row_max[TQ], row_sum[TQ];   // row_sum: this lane's share
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int ch = part + 4 * j;
-      if (ch < c) {
-        float a = acc[j] * scale;
-        for (int kj = 0; kj < kAK; ++kj)
-          a = fmaf(prow[kj], vs[kj * ld + ch], a);
-        acc[j] = a;
+  for (int i = 0; i < TQ; ++i) {
+    row_max[i] = -INFINITY;
+    row_sum[i] = 0.0f;
+#pragma unroll
+    for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][ct][e] = 0.0f;
+  }
+
+  const int ntiles = (s + kSimtK - 1) / kSimtK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int stage = it & 1;
+    const int k0 = it * kSimtK;
+    cp_async_wait<0>();
+    // tile `it` has landed for every thread, and every thread is done with
+    // tile it - 1: its stage and P may be written again
+    __syncthreads();
+    if (it + 1 < ntiles) {
+      stage_simt<CP, KP, THREADS>(k_s + (stage ^ 1) * kSimtK * KP, kb,
+                                  k0 + kSimtK, kSimtK, s, c, vec16, tid);
+      stage_simt<CP, CP, THREADS>(v_s + (stage ^ 1) * kSimtK * CP, vb,
+                                  k0 + kSimtK, kSimtK, s, c, vec16, tid);
+    }
+    cp_async_commit();
+
+    // logits of TQ queries x 8 keys: per 4 channels, 8 + TQ float4 loads
+    // feed 32 TQ FMAs
+    float sc[TQ][kLaneKeys];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kLaneKeys; ++j) sc[i][j] = 0.0f;
+    const float* ks = k_s + stage * kSimtK * KP + tk * KP;
+#pragma unroll 2
+    for (int cc = 0; cc < CP / 4; ++cc) {
+      float4 kv[kLaneKeys];
+#pragma unroll
+      for (int j = 0; j < kLaneKeys; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + 8 * j * KP + 4 * cc);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(q_rows + i * CP + 4 * cc);
+#pragma unroll
+        for (int j = 0; j < kLaneKeys; ++j) {
+          sc[i][j] = fmaf(qv.x, kv[j].x, sc[i][j]);
+          sc[i][j] = fmaf(qv.y, kv[j].y, sc[i][j]);
+          sc[i][j] = fmaf(qv.z, kv[j].z, sc[i][j]);
+          sc[i][j] = fmaf(qv.w, kv[j].w, sc[i][j]);
+        }
+      }
+    }
+    if (k0 + kSimtK > s) {   // the ragged last tile: keys from s on
+#pragma unroll
+      for (int j = 0; j < kLaneKeys; ++j)
+        if (k0 + tk + 8 * j >= s)
+#pragma unroll
+          for (int i = 0; i < TQ; ++i) sc[i][j] = -INFINITY;
+    }
+
+    // online softmax; the row's maximum is reduced over its 8 lanes, so
+    // every thread works in it. Every tile holds a key below s, so the new
+    // maximum is finite and exp2(-inf - m) = 0 on the first tile
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      float mx = sc[i][0];
+#pragma unroll
+      for (int j = 1; j < kLaneKeys; ++j) mx = fmaxf(mx, sc[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(row_max[i], mx);
+      const float scale = fast_exp2((row_max[i] - m_new) * kLog2e);
+      row_max[i] = m_new;
+      const float mb = m_new * kLog2e;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kLaneKeys; ++j) {
+        const float p = fast_exp2(fmaf(sc[i][j], kLog2e, -mb));
+        sum += p;
+        sc[i][j] = to_f32(from_f32<T>(p));   // weights in v's type
+      }
+      row_sum[i] = row_sum[i] * scale + sum;
+#pragma unroll
+      for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][ct][e] *= scale;
+    }
+    // P to shared memory, key-major: a lane's TQ queries are contiguous
+#pragma unroll
+    for (int j = 0; j < kLaneKeys; ++j)
+#pragma unroll
+      for (int h = 0; h < TQ / 4; ++h)
+        *reinterpret_cast<float4*>(p_s + (tk + 8 * j) * PP + q0 + 4 * h) =
+            make_float4(sc[4 * h][j], sc[4 * h + 1][j], sc[4 * h + 2][j],
+                        sc[4 * h + 3][j]);
+    __syncthreads();
+
+    // O += P V: a lane's TQ queries x CP / 8 channels; per key TQ / 4 + CT
+    // float4 loads feed 4 TQ CT FMAs
+    const float* vs = v_s + stage * kSimtK * CP + 4 * tk;
+#pragma unroll 4
+    for (int kk = 0; kk < kSimtK; ++kk) {
+      float4 pv[TQ / 4], vv[CT];
+#pragma unroll
+      for (int h = 0; h < TQ / 4; ++h)
+        pv[h] = *reinterpret_cast<const float4*>(p_s + kk * PP + q0 + 4 * h);
+#pragma unroll
+      for (int ct = 0; ct < CT; ++ct)
+        vv[ct] = *reinterpret_cast<const float4*>(vs + kk * CP + 32 * ct);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const float p = lane_of(pv[i / 4], i % 4);
+#pragma unroll
+        for (int ct = 0; ct < CT; ++ct) {
+          o[i][ct][0] = fmaf(p, vv[ct].x, o[i][ct][0]);
+          o[i][ct][1] = fmaf(p, vv[ct].y, o[i][ct][1]);
+          o[i][ct][2] = fmaf(p, vv[ct].z, o[i][ct][2]);
+          o[i][ct][3] = fmaf(p, vv[ct].w, o[i][ct][3]);
+        }
       }
     }
   }
-  __syncthreads();
-  if (q0 + my_q >= s) return;
-  const float inv = 1.0f / row_sum[my_q];
-  T* ob = out + base + static_cast<size_t>(q0 + my_q) * c;
+
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int ch = part + 4 * j;
-    if (ch < c) ob[ch] = from_f32<T>(acc[j] * inv);
+  for (int i = 0; i < TQ; ++i) {
+    float l = row_sum[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int row = qb + q0 + i;
+    if (row >= s) continue;
+    const float inv = 1.0f / l;
+    T* orow = out + base + static_cast<size_t>(row) * c;
+#pragma unroll
+    for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = 4 * tk + 32 * ct + e;
+        if (ch < c) orow[ch] = from_f32<T>(o[i][ct][e] * inv);
+      }
   }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int CP>
+int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
+                int s, int c, cudaStream_t stream) {
+  constexpr size_t smem = simt_smem_bytes<CP>();
+  cudaError_t err = bdm_allow_smem(attention_simt_kernel<T, CP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec16 = sizeof(T) == 4 && c % 4 == 0 && aligned16(q) &&
+                    aligned16(k) && aligned16(v);
+  const dim3 grid((s + SimtShape<CP>::BQ - 1) / SimtShape<CP>::BQ, b);
+  attention_simt_kernel<T, CP>
+      <<<grid, SimtShape<CP>::THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), s, c, vec16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
                 int s, int c, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(3) * kAQ * (c + 1) +
-                       kAQ * (kAK + 1) + 3 * kAQ);
-  cudaError_t err = bdm_allow_smem(attention_simt_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kAQ - 1) / kAQ, b);
-  attention_simt_kernel<T><<<grid, kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, c);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  if (c <= 32) return launch_simt<T, 32>(q, k, v, out, b, s, c, stream);
+  if (c <= 64) return launch_simt<T, 64>(q, k, v, out, b, s, c, stream);
+  return launch_simt<T, 128>(q, k, v, out, b, s, c, stream);
 }
 
 }  // namespace

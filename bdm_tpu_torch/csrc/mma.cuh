@@ -31,6 +31,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// The same for 8 bytes (sources that are only 8-byte aligned).
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // The same for 4 bytes (sources that are only 4-byte aligned).
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int src_bytes) {

@@ -10,6 +10,7 @@ layers run in it, GroupNorm statistics and the softmax stay float32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -24,6 +25,42 @@ GN_EPS = 1e-5  # torch.nn.GroupNorm's default, as in the reference
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+# The source of dropout keep-masks for the loss being evaluated: an object
+# with `keep_mask(shape, p) -> bool tensor` (`samplers.TrainNoise`), set by
+# `dropout_masks` around a loss's forward.
+_mask_source = None
+
+
+@contextlib.contextmanager
+def dropout_masks(source):
+    """Inside this block every `Dropout` in training mode takes its
+    keep-mask from `source.keep_mask(shape, p)`."""
+    global _mask_source
+    outer, _mask_source = _mask_source, source
+    try:
+        yield
+    finally:
+        _mask_source = outer
+
+
+class Dropout(nn.Dropout):
+    """flax's `nn.Dropout`: x / (1 - p) where a Bernoulli(1 - p) keep-mask
+    is set, else 0; the identity in eval mode or at p = 0 (no mask drawn).
+    The mask comes from the source `dropout_masks` set for the current
+    loss, so a training step is a function of its `TrainNoise`; outside a
+    loss (a forward in train mode) from PyTorch's global generator, as
+    `nn.Dropout`'s. No parameters: `state_dict` keys are those of
+    `nn.Dropout`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if _mask_source is None:
+            return F.dropout(x, self.p, True)
+        keep = _mask_source.keep_mask(x.shape, self.p)
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 def get_timestep_embedding(embed_dim: int, t: torch.Tensor) -> torch.Tensor:

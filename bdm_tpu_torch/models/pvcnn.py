@@ -20,9 +20,10 @@ import torch
 import torch.nn as nn
 
 from bdm_tpu_torch import ops
-from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, GroupNormCL,
-                                         SharedMLP, get_timestep_embedding,
-                                         swish, timestep_mlp)
+from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, Dropout,
+                                         GroupNormCL, SharedMLP,
+                                         get_timestep_embedding, swish,
+                                         timestep_mlp)
 
 # (conv_configs, sa_configs) per stage; conv = (out_ch, num_blocks, voxel_res),
 # sa = (num_centers, radius, num_neighbors, mlp_channels)
@@ -150,7 +151,7 @@ class PVConv(nn.Module):
         self.dtype = dtype
         self.voxel_layers = nn.ModuleList([
             VoxConv(cin, cout), GroupNormCL(8, cout), nn.SiLU(),
-            nn.Dropout(dropout), VoxConv(cout, cout), GroupNormCL(8, cout),
+            Dropout(dropout), VoxConv(cout, cout), GroupNormCL(8, cout),
             Attention(cout, 8, kdims=3, dtype=dtype) if attention
             else nn.SiLU(),
             SE(cout, dtype=dtype)])
@@ -307,7 +308,7 @@ class PVCNNDecoder:
             fp_layers.append(nn.Sequential(fp, *convs))
         self.fp_layers = nn.ModuleList(fp_layers)
         self.classifier = nn.Sequential(
-            SharedMLP(ch, (128,), kdims=1, dtype=dtype), nn.Dropout(dropout),
+            SharedMLP(ch, (128,), kdims=1, dtype=dtype), Dropout(dropout),
             Conv1x1(128, out_channels, 1))
 
     def __call__(self, features: torch.Tensor, coords: torch.Tensor,

@@ -31,8 +31,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "bdm_fps": (_P, _P, _I, _I, _I, _P),
-    "bdm_fps_round_floor": (_P, _P, _I, _I, _I, _P),
+    "bdm_fps": (_P, _P, _P, _I, _I, _I, _P),
+    "bdm_fps_round_floor": (_P, _P, _P, _I, _I, _I, _P),
     "bdm_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "bdm_interp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "bdm_conv3d_path": (_I, _I, _I, _I),
     "bdm_conv3d_n_tile": (_I,),
     "bdm_fps_threads": (_I,),
+    "bdm_fps_points": (_I,),
     "bdm_scatter_mean_vec": (_I, _I, _I),
     "bdm_scatter_mean_lanes": (_I, _I, _I),
 }

@@ -39,6 +39,8 @@ launches_simt = 0
 plain_cuda_calls = 0
 packs = 0       # weight copies made by `packed`: cache misses
 CIN_STEP = 16   # the depth of one tensor-core product
+GEMM_CIN_STEP = 4   # the CUDA-core kernel's piece: 4 channels of one tap
+GEMM_K_STEP = 16    # ... and its ring stage: 4 pieces
 
 
 def conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -60,7 +62,7 @@ def kernel_path(dtype: torch.dtype, cin: int, cout: int, r: int) -> str:
 
 
 def n_tile(cout: int) -> int:
-    """Output channels a block of the tensor-core kernel computes
+    """Output channels a block of either kernel computes
     (`bdm_conv3d_n_tile`)."""
     return 32 if cout <= 32 else 64
 
@@ -70,11 +72,18 @@ def padded(n: int, step: int) -> int:
 
 
 def gemm_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(Cout, Cin, 3, 3, 3) -> (27 * Cin, Cout), tap-major rows
-    (kd, kh, kw, ci): the layout the CUDA-core kernel reads."""
+    """(Cout, Cin, 3, 3, 3) -> (Kp, Cout_p), rows (tap, ci) with taps in
+    (kd, kh, kw) order and the channels of a tap padded to Cin4 (a multiple
+    of GEMM_CIN_STEP), Kp = 27 * Cin4 padded to a multiple of GEMM_K_STEP,
+    Cout_p a multiple of the N tile, zeros in the padding: the layout the
+    CUDA-core kernel reads."""
     cout, cin = weight.shape[:2]
-    return (weight.to(dtype).permute(2, 3, 4, 1, 0)
-            .reshape(27 * cin, cout).contiguous())
+    cin4 = padded(cin, GEMM_CIN_STEP)
+    w = weight.detach().to(dtype).permute(2, 3, 4, 1, 0).reshape(27, cin, cout)
+    out = w.new_zeros((padded(27 * cin4, GEMM_K_STEP),
+                       padded(cout, n_tile(cout))))
+    out[:27 * cin4].view(27, cin4, -1)[:, :cin, :cout] = w
+    return out
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -127,8 +136,8 @@ def packed(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
         w = pack_weight(weight)
         bf = pack_bias(bias, w.shape[2])
     else:
-        w = gemm_weight(weight.detach(), dtype)
-        bf = bias.detach().float().contiguous()
+        w = gemm_weight(weight, dtype)
+        bf = pack_bias(bias, w.shape[1])
     if cacheable:
         _packed[key] = (
             weakref.ref(weight, lambda _, key=key: _packed.pop(key, None)),

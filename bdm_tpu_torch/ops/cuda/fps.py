@@ -4,9 +4,12 @@ Replaces `furthest_point_sample_pallas` (bdm_tpu/ops/pallas/fps.py). A CPU
 tensor goes to the plain version; a CUDA tensor launches the kernel.
 
 The kernel runs one block a cloud; `threads(n)` is its block size (the
-source's `bdm_fps_threads`), and thread t holds the points t, t + T, ...
-`round_floor` runs the same block without the distance work: a measurement,
-not counted as a launch.
+source's `bdm_fps_threads`), and thread t holds the points t, t + T, ...:
+`points(n)` of them (`bdm_fps_points`), in registers up to
+MAX_REGISTER_POINTS, above it streamed every round with the running
+distances in a (B, N) float32 scratch this wrapper allocates, so N has no
+limit. `round_floor` runs the same block without the distance work: a
+measurement, not counted as a launch.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from bdm_tpu_torch.ops.cuda import _lib
 launches = 0          # kernel launches
 plain_cuda_calls = 0  # plain-version calls on CUDA tensors
 POINTS_A_THREAD = 8   # `kPointsAThread` of the source
+MAX_REGISTER_POINTS = 16   # the largest K the source keeps in registers
 
 
 def threads(n: int) -> int:
@@ -25,6 +29,20 @@ def threads(n: int) -> int:
     n / POINTS_A_THREAD rounded up to a warp, at most 1024."""
     t = -(-n // POINTS_A_THREAD)
     return min(1024, max(32, -(-t // 32) * 32))
+
+
+def points(n: int) -> int:
+    """Points a thread of that block holds: ceil(n / threads(n)) rounded up
+    to a power of two."""
+    return 1 << (-(-n // threads(n)) - 1).bit_length()
+
+
+def _scratch(coords: torch.Tensor):
+    """The running distances of the streamed variant, or None."""
+    b, n, _ = coords.shape
+    if points(n) <= MAX_REGISTER_POINTS:
+        return None
+    return torch.empty((b, n), dtype=torch.float32, device=coords.device)
 
 
 def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -67,10 +85,11 @@ def furthest_point_sample(coords: torch.Tensor,
     m = int(num_samples)
     if c != 3 or not 1 <= m <= n:
         raise ValueError(f"fps: coords {tuple(coords.shape)}, M={m}")
-    if 16 * n > 227 * 1024:
-        raise ValueError(f"fps: N={n} does not fit in shared memory")
     out = torch.empty((b, m), dtype=torch.int32, device=coords.device)
-    _lib.launch("bdm_fps", coords.data_ptr(), out.data_ptr(), b, n, m)
+    dist = _scratch(coords)
+    _lib.launch("bdm_fps", coords.data_ptr(),
+                None if dist is None else dist.data_ptr(), out.data_ptr(), b,
+                n, m)
     launches += 1
     return out
 
@@ -83,5 +102,7 @@ def round_floor(coords: torch.Tensor, num_samples: int) -> None:
     b, n, _ = coords.shape
     out = torch.empty((b, int(num_samples)), dtype=torch.int32,
                       device=coords.device)
-    _lib.launch("bdm_fps_round_floor", coords.data_ptr(), out.data_ptr(), b,
+    dist = _scratch(coords)
+    _lib.launch("bdm_fps_round_floor", coords.data_ptr(),
+                None if dist is None else dist.data_ptr(), out.data_ptr(), b,
                 n, int(num_samples))

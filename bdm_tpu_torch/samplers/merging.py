@@ -21,6 +21,7 @@ import torch
 from bdm_tpu_torch import resolve_device
 from bdm_tpu_torch.conditioning import PerspectiveCamera
 from bdm_tpu_torch.models.fusion import PVCNNFuse
+from bdm_tpu_torch.models.layers import dropout_masks
 from bdm_tpu_torch.models.pvcnn import PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS
 from bdm_tpu_torch.samplers.blending import coupled_sampler
 from bdm_tpu_torch.samplers.noise import NoiseProvider, TrainNoise
@@ -87,10 +88,11 @@ class BDMMergingModel(ProjectionConditioned):
         """eps-MSE through the fusion network in "fusion_1step" mode
         (`model.py:372-419`): both towers read the noised cloud. Which
         parameters train is the optimizer's business
-        (`train.fusion_freeze_mask`)."""
+        (`train.fusion_freeze_mask`); dropout masks from `noise`."""
         x_t, x_in, t, eps = self.noised_batch(batch, noise)
-        return torch.mean((self.fusion(x_in, x_t, t, "fusion_1step") - eps)
-                          ** 2)
+        with dropout_masks(noise):
+            eps_hat = self.fusion(x_in, x_t, t, "fusion_1step")
+        return torch.mean((eps_hat - eps) ** 2)
 
     # -------------------------------------------------------------- sampling
     def predict(self, recon: torch.Tensor, prior: torch.Tensor, t: int,

@@ -6,9 +6,9 @@ numbers. A draw names its place in the trajectory: the initial cloud, step
 `j` of an `n_steps` window of branch "seg" (the recon segment between
 milestones), "recon" or "prior" (the two rolls at interior milestone
 `i`), the blend mask of milestone `i` (BDM-Blending) and the fusion step
-of milestone `i` (BDM-Merging). A training loss draws one pair a step:
-the timesteps and the noise (`TrainNoise`); dropout masks come from
-PyTorch's own generator.
+of milestone `i` (BDM-Merging). A training loss draws one pair a step,
+the timesteps and the noise, and its dropout keep-masks, all from one
+`TrainNoise`.
 """
 
 from __future__ import annotations
@@ -49,25 +49,55 @@ class NoiseProvider:
                              device=self.device)
 
 
+def _dropout_seed(seed: int) -> int:
+    """The dropout generator's seed: one step of Knuth's MMIX linear
+    congruential generator from `seed`, so its stream is not the
+    timesteps' and noise's."""
+    return (int(seed) * 6364136223846793005 + 1442695040888963407) % 2 ** 64
+
+
 class TrainNoise:
     """What a training loss draws each step: `draw(shape, num_timesteps)`
     -> (t (B,) int64 uniform in [0, T), standard normal noise of `shape`),
-    from one torch.Generator on the target device.
+    from one torch.Generator on the target device; and, while the loss runs
+    its forward (`models.layers.dropout_masks`), `keep_mask(shape, p)` ->
+    a Bernoulli(1 - p) bool keep-mask for each dropout site in the order
+    the sites run, from a second generator seeded from `seed`.
 
     With `replay`, an iterable of (t, noise) array pairs made elsewhere
     (a test replays the reference's key tree), the pairs are handed out in
-    order instead."""
+    order instead; an item (t, noise, masks) also replays that step's
+    keep-masks, one array a dropout site in the order the sites run."""
 
     def __init__(self, seed: int = 0, device=None,
                  replay: Optional[Iterable] = None):
         self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.dropout_gen = torch.Generator(device=self.device).manual_seed(
+            _dropout_seed(seed))
         self.replay = None if replay is None else iter(replay)
+        self.masks = None   # this step's replayed keep-masks, if any
+
+    def keep_mask(self, shape, p: float) -> torch.Tensor:
+        if self.masks is not None:
+            keep = next(self.masks, None)
+            if keep is None:
+                raise ValueError("TrainNoise: no replayed mask left for a "
+                                 f"dropout site of shape {tuple(shape)}")
+            keep = torch.as_tensor(keep).to(self.device, torch.bool)
+            if keep.shape != tuple(shape):
+                raise ValueError(f"TrainNoise: replayed mask "
+                                 f"{tuple(keep.shape)} for a dropout site "
+                                 f"of shape {tuple(shape)}")
+            return keep
+        return torch.rand(tuple(shape), generator=self.dropout_gen,
+                          device=self.device) < 1.0 - p
 
     def draw(self, shape, num_timesteps: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.replay is not None:
-            t, noise = next(self.replay)
+            t, noise, *masks = next(self.replay)
+            self.masks = iter(masks[0]) if masks else None
             t = torch.as_tensor(t).to(self.device, torch.long)
             noise = torch.as_tensor(noise).to(self.device, torch.float32)
             if t.shape != (shape[0],) or noise.shape != tuple(shape):

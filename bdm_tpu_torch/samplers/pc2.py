@@ -27,6 +27,7 @@ from bdm_tpu_torch.conditioning import PerspectiveCamera, surface_projection
 from bdm_tpu_torch.diffusion import (DDIMScheduler, DDPMScheduler,
                                      linear_betas)
 from bdm_tpu_torch.models.feature_model import FeatureModel
+from bdm_tpu_torch.models.layers import dropout_masks
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2)
 from bdm_tpu_torch.samplers.noise import TrainNoise
@@ -157,9 +158,12 @@ class PC2Model(ProjectionConditioned):
     def loss(self, batch: Dict[str, Any], noise: TrainNoise) -> torch.Tensor:
         """eps-MSE training loss (`model.py:75-121`) of one batch {"image":
         (B, H, W, 3), "camera", "points": (B, N, 3)}; dropout follows the
-        module's mode (`train.make_train_step` switches it on)."""
+        module's mode (`train.make_train_step` switches it on) and takes
+        its masks from `noise`."""
         _, x_in, t, eps = self.noised_batch(batch, noise)
-        return torch.mean((self.backbone(x_in, t) - eps) ** 2)
+        with dropout_masks(noise):
+            eps_hat = self.backbone(x_in, t)
+        return torch.mean((eps_hat - eps) ** 2)
 
     # -------------------------------------------------------------- sampling
     @torch.inference_mode()

@@ -12,6 +12,7 @@ import torch.nn as nn
 
 from bdm_tpu_torch import resolve_device
 from bdm_tpu_torch.diffusion import GaussianDiffusion, pvd_betas
+from bdm_tpu_torch.models.layers import dropout_masks
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2)
 from bdm_tpu_torch.samplers.noise import TrainNoise
@@ -48,10 +49,13 @@ class PVDModel(nn.Module):
 
     def loss(self, x0: torch.Tensor, noise: TrainNoise) -> torch.Tensor:
         """eps-MSE training loss of clouds x0 (B, N, 3): t uniform in
-        [0, T), x_t = q_sample(x0), mean((eps_hat - eps)^2)."""
+        [0, T), x_t = q_sample(x0), mean((eps_hat - eps)^2); dropout masks
+        from `noise`."""
         t, eps = noise.draw(x0.shape, self.diffusion.num_timesteps)
         x_t = self.diffusion.q_sample(x0, t, eps)
-        return torch.mean((self.model(x_t, t) - eps) ** 2)
+        with dropout_masks(noise):
+            eps_hat = self.model(x_t, t)
+        return torch.mean((eps_hat - eps) ** 2)
 
     @torch.inference_mode()
     def generate_window(self, x: torch.Tensor, start_time: int,

@@ -11,13 +11,19 @@ device time a step of every hand-written kernel, of cuDNN's convolution
 kernels (the conv's backward) and of PyTorch's other kernels together
 (self device time summed by kernel name), their launches a step, the host
 wall a step under the profiler, the busy share (device time / wall), for
-a training step the peak memory, and the card's name and power limit. A
-last line times the attention's backward rule alone (CUDA events).
+a training step the peak memory, and the card's name and power limit. For
+each training step one more line breaks its conv3d forwards down by shape:
+the launches a step of each (Cin, Cout, R, batch, dtype) and that conv's
+kernel time alone (CUDA events, median of 5 after warm-up, fresh random
+inputs). A last line times the attention's backward rule alone (CUDA
+events).
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import statistics
 import subprocess
 import time
 
@@ -31,7 +37,8 @@ from bdm_tpu_torch.tools.standins import (camera, production_models,
 from bdm_tpu_torch.train import (create_train_state, make_optimizer,
                                  make_train_step, pc2_freeze_mask)
 
-KERNELS = ("conv3d_tc_kernel", "conv3d_simt_kernel", "attention_tc_kernel",
+KERNELS = ("conv3d_tc_kernel", "conv3d_simt_kernel",
+           "conv3d_simt_halo_kernel", "attention_tc_kernel",
            "attention_simt_kernel", "fps_kernel",
            "scatter_mean_kernel", "scatter_sum_kernel", "ball_query_kernel",
            "three_nn_kernel", "interp_kernel")
@@ -83,6 +90,49 @@ def train_step_call(mixed_precision: str, b: int, n: int):
     batches = training_batches(5, b, n, "cuda")
     noise = TrainNoise(0, "cuda")
     return lambda: step(state, next(batches), noise)
+
+
+def conv3d_by_shape(call) -> list:
+    """The conv3d forwards of one `call()` by shape: launches, the kernel
+    time of one launch at that shape and their product."""
+    from bdm_tpu_torch.ops.cuda import conv3d
+    seen = collections.Counter()
+    inner = conv3d._forward
+
+    def noting(x, weight, bias):
+        seen[(x.shape[-1], weight.shape[0], x.shape[1], x.shape[0],
+              x.dtype)] += 1
+        return inner(x, weight, bias)
+
+    conv3d._forward = noting
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        conv3d._forward = inner
+    g = torch.Generator().manual_seed(4)
+    rows = []
+    for (cin, cout, r, b, dtype), launches in sorted(
+            seen.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2] ** 3):
+        x = torch.randn(b, r, r, r, cin, generator=g).to("cuda", dtype)
+        w = (torch.randn(cout, cin, 3, 3, 3, generator=g)
+             * (27 * cin) ** -0.5).cuda()
+        bias = torch.randn(cout, generator=g).cuda()
+        times = []
+        for _ in range(7):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            conv3d.conv3d(x, w, bias)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times[2:])
+        rows.append({"cin": cin, "cout": cout, "r": r, "batch": b,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "launches": launches, "ms": ms,
+                     "total_ms": ms * launches})
+    return rows
 
 
 def attention_backward_ms(dtype) -> float:
@@ -138,6 +188,9 @@ def main() -> None:
             "train_step": f"pc2_{mp}", "batch": b, "points": n, **out,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "card": card}), flush=True)
+        print(json.dumps({"train_step": f"pc2_{mp}",
+                          "conv3d_forward_by_shape": conv3d_by_shape(call),
+                          "card": card}), flush=True)
         del call
     print(json.dumps({"attention_backward_ms": {
         "float32": attention_backward_ms(torch.float32),

@@ -23,8 +23,12 @@ Phases, in the order they run (any failure exits non-zero):
      without the distance work (the floor of its design); scatter-mean with
      its vector and lanes rule against the source's and float32 bit for bit
      against the CPU; beside the times of fps and scatter-mean, those of
-     the kernels they replaced (`BEFORE_MS`); the float32 attention against the
-     float32 fused attention;
+     the kernels they replaced (`BEFORE_MS`); the float32 attention at C 64
+     and 128 against the float32 fused attention, and the float32 conv
+     (no TF32 in the library call) at 64 -> 64 and 390 -> 32 and 32 -> 32
+     R 32, 128 -> 128 R 9 and 512 -> 512 R 8, beside the recorded times of
+     the float32 kernels they replaced (`REPLACED_F32_MS`); FPS past what a
+     thread holds in registers (`FPS_LARGE`, N up to 40,000), exact;
   a'. gradients: each differentiable wrapper forward through its kernel
      and backward on the card, against forward and backward of its plain
      version under PyTorch's own autograd on the card;
@@ -45,7 +49,9 @@ Phases, in the order they run (any failure exits non-zero):
      each runs a one-step roll of both branches and a fusion step;
   g. PC2 training at production widths, B=8, N=4096, four steps of
      `train_loop` (AdamW, clip 50, EMA) on a repeated seeded batch, in
-     float32 and then at bf16 compute;
+     float32 and then at bf16 compute; before the float32 steps, the loss
+     with dropout on (p = 0.1) from `TrainNoise` seeds 1, 1 and 2: the
+     first two agree, the third differs;
   h. PVD training at `width_multiplier=2`, B=4, N=2048, float32, two
      steps (its 512 -> 512 conv at R=8), then one training step of the
      fusion network at production widths, B=2, bf16, both towers frozen.
@@ -141,6 +147,19 @@ PREVIOUS_MS = {
     "conv3d": {(390, 32, 32): 17.5726, (64, 64, 32): 2.9222,
                (512, 512, 8): 4.5892},
 }
+
+# Times of the float32 CUDA-core kernels that the present ones replaced: ms
+# at B=8 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6 keeps
+# them in rows 5, 9 and 12u)
+REPLACED_F32_MS = {
+    "attention": {(4096, 64): 8.7200},
+    "conv3d": {(64, 64, 32): 2.8040, (128, 128, 9): 0.4323,
+               (512, 512, 8): 3.7334},
+}
+
+# FPS clouds past what a thread holds in registers (K 16 at 1,024 threads),
+# (N, M): N 16,384 is the reference's `dataset.max_points`
+FPS_LARGE = [(16384, 4096), (20000, 5000), (40000, 10000)]
 
 # Times of the FPS and scatter-mean kernels that the present ones replaced:
 # ms at B=8 on an NVIDIA H100 80GB HBM3 at 700.00 W, one launch between CUDA
@@ -262,8 +281,10 @@ def check_kernels(dev):
             if not torch.equal(fps.furthest_point_sample(x, m),
                                fps.furthest_point_sample_plain(x, m)):
                 fail(f"fps differs on the {kind} cloud at N={n}, M={m}")
-        if lib.bdm_fps_threads(n) != fps.threads(n):
-            fail(f"fps: the source's block for N={n} is not `threads`")
+        if (lib.bdm_fps_threads(n), lib.bdm_fps_points(n)) != (
+                fps.threads(n), fps.points(n)):
+            fail(f"fps: the source's block for N={n} is not `threads`, "
+                 f"`points`")
     # the first level of a cloud of 2,048 points (PVD at twice the width)
     pts[2048] = pts[4096][:, :2048].contiguous()
     idx2 = fps.furthest_point_sample(pts[2048], 1024)
@@ -280,6 +301,20 @@ def check_kernels(dev):
     if not torch.equal(i, pi):
         fail("three_nn indices differ at N=2048, M=1024")
     rel_err(w, pw, 1e-6, "three_nn weights N=2048")
+    # past the registers: the streamed variant, exact against the plain
+    # version, one launch timed
+    large = {}
+    for n, m in FPS_LARGE:
+        x = randn(b, n, 3, scale=0.3)
+        if not torch.equal(fps.furthest_point_sample(x, m),
+                           fps.furthest_point_sample_plain(x, m)):
+            fail(f"fps differs at N={n}, M={m}")
+        if (lib.bdm_fps_threads(n), lib.bdm_fps_points(n)) != (
+                fps.threads(n), fps.points(n)):
+            fail(f"fps: the source's block for N={n} is not `threads`, "
+                 f"`points`")
+        large[f"N{n}_M{m}"] = timed_ms(
+            lambda: fps.furthest_point_sample(x, m), 3, 1)
     c0, p0 = pts[1024], pts[4096]
     res["fps"] = dict(
         max_abs_err=0.0,
@@ -289,6 +324,7 @@ def check_kernels(dev):
         # barrier, the reductions and the winner's look-up
         round_floor_ms=timed_ms(lambda: fps.round_floor(p0, 1024), inner=10),
         timing="10 launches back to back behind a matmul",
+        ms_one_launch_large_n=large,
         plain_ms=timed_ms(
             lambda: fps.furthest_point_sample_plain(p0, 1024), 3, 1),
         library_ms=None,
@@ -520,7 +556,10 @@ def check_kernels(dev):
     def conv_times(cin, cout, r, dt=torch.bfloat16):
         """Kernel, plain and one-call (cuDNN, channels-last, in the grid's
         type; float32 without TF32) times and the bound of one conv; the
-        one call must agree."""
+        one call must agree. Kernel and one call are timed 10 launches back
+        to back behind a matmul (the card's time, not the host's: one
+        launch of the wrapper costs the host some 50 us), the kernel also
+        one launch between events."""
         x = randn(b, r, r, r, cin, dtype=dt)
         wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
         bias = randn(cout, scale=0.1)
@@ -533,9 +572,12 @@ def check_kernels(dev):
                 2e-2 if bf16 else 1e-4,
                 f"F.conv3d {dt} yardstick {cin}->{cout}")
         return dict(
-            ms=timed_ms(lambda: conv3d.conv3d(x, wt, bias)),
+            ms=timed_ms(lambda: conv3d.conv3d(x, wt, bias), inner=10),
+            ms_one_launch=timed_ms(lambda: conv3d.conv3d(x, wt, bias)),
+            timing="10 launches back to back behind a matmul",
             plain_ms=timed_ms(lambda: conv3d.conv3d_plain(x, wt, bias)),
-            library_ms=timed_ms(lambda: F.conv3d(xl, wl, bl, padding=1)),
+            library_ms=timed_ms(lambda: F.conv3d(xl, wl, bl, padding=1),
+                                inner=10),
             **bound([x, wt, bias, y], 2 * 27 * cin * cout * r ** 3 * b,
                     "bf16" if bf16 else "f32"))
 
@@ -549,6 +591,9 @@ def check_kernels(dev):
         f32_64_64_r32=conv_times(64, 64, 32, torch.float32),
         f32_128_128_r9=conv_times(128, 128, 9, torch.float32),
         f32_512_512_r8=conv_times(512, 512, 8, torch.float32),
+        # the float32 convs that dominate a float32 PC2 step
+        f32_390_32_r32=conv_times(390, 32, 32, torch.float32),
+        f32_32_32_r32=conv_times(32, 32, 32, torch.float32),
         bf16_512_512_r8=conv_times(512, 512, 8))
 
     attns = ATTNS
@@ -579,10 +624,14 @@ def check_kernels(dev):
         rel_err(F.scaled_dot_product_attention(*heads, scale=1.0)[:, 0], out,
                 2e-2, "scaled_dot_product_attention yardstick")
         return dict(
-            max_abs_err=err, ms=timed_ms(lambda: attention.attention(*qkv)),
+            max_abs_err=err,
+            ms=timed_ms(lambda: attention.attention(*qkv), inner=10),
+            ms_one_launch=timed_ms(lambda: attention.attention(*qkv)),
+            timing="10 launches back to back behind a matmul",
             plain_ms=timed_ms(lambda: attention.attention_plain(*qkv)),
             library_ms=timed_ms(
-                lambda: F.scaled_dot_product_attention(*heads, scale=1.0)),
+                lambda: F.scaled_dot_product_attention(*heads, scale=1.0),
+                inner=10),
             **bound([*qkv, out], 4 * s ** 2 * c * b, "bf16"))
 
     def attn_times_f32(s, c):
@@ -596,15 +645,19 @@ def check_kernels(dev):
         rel_err(F.scaled_dot_product_attention(*heads, scale=1.0)[:, 0], out,
                 1e-3, "scaled_dot_product_attention float32 yardstick")
         return dict(
-            ms=timed_ms(lambda: attention.attention(*qkv)),
+            ms=timed_ms(lambda: attention.attention(*qkv), inner=10),
+            ms_one_launch=timed_ms(lambda: attention.attention(*qkv)),
+            timing="10 launches back to back behind a matmul",
             plain_ms=timed_ms(lambda: attention.attention_plain(*qkv)),
             library_ms=timed_ms(
-                lambda: F.scaled_dot_product_attention(*heads, scale=1.0)),
+                lambda: F.scaled_dot_product_attention(*heads, scale=1.0),
+                inner=10),
             **bound([*qkv, out], 4 * s ** 2 * c * b, "f32"))
 
     wide = attn_times(4096, 128)
     res["attention"] = dict(attn_times(4096, 64), s4096_c128=wide,
-                            f32_s4096_c64=attn_times_f32(4096, 64))
+                            f32_s4096_c64=attn_times_f32(4096, 64),
+                            f32_s4096_c128=attn_times_f32(4096, 128))
     # held but on no path: S of an odd grid (729 = 9^3: a ragged last key
     # tile and query tile) at narrow and wide C, rows peaked by a larger
     # scale; S below one tile; a C that is no multiple of 8 (CUDA cores)
@@ -640,10 +693,27 @@ def check_kernels(dev):
             ms = now[name][shape]
             print(f"{name} {shape} bf16: {ms:.4f} ms on the tensor cores "
                   f"(CUDA-core kernel before: {before} ms, {before / ms:.1f}x)")
+    # the new float32 times beside the recorded ones of the kernels they
+    # replaced, and the one PyTorch call of this run
+    now = {"attention": {(4096, 64): res["attention"]["f32_s4096_c64"]},
+           "conv3d": {(64, 64, 32): res["conv3d"]["f32_64_64_r32"],
+                      (128, 128, 9): res["conv3d"]["f32_128_128_r9"],
+                      (512, 512, 8): res["conv3d"]["f32_512_512_r8"]}}
+    for name, shapes in REPLACED_F32_MS.items():
+        for shape, before in shapes.items():
+            r = now[name][shape]
+            print(f"{name} {shape} float32: {r['ms']:.4f} ms back to back, "
+                  f"{r['ms_one_launch']:.4f} ms one launch, on the CUDA cores "
+                  f"(before: {before} ms one launch, "
+                  f"{before / r['ms_one_launch']:.2f}x; one PyTorch call "
+                  f"{r['library_ms']:.4f} ms back to back; bound "
+                  f"{r['bound_ms']:.5f} ms)")
     fr, sm = res["fps"], res["scatter_mean"]
     print(f"fps round floor N=4096 M=1024: {fr['round_floor_ms']:.4f} ms "
           f"(operations bound {fr['bound_ms']:.5f} ms, kernel "
           f"{fr['ms']:.4f} ms)")
+    print("fps past the registers, one launch, ms:",
+          json.dumps(fr["ms_one_launch_large_n"]))
     redesigned = {
         "fps N4096 M1024": fr,
         "scatter_mean bf16 C390 R32": sm,
@@ -1067,6 +1137,8 @@ def pc2_training(dev, mixed_precision, steps=4):
     noise = TrainNoise(device=dev, replay=itertools.repeat(draw))
     batches = training_batches(SEED + 5, b, n, dev, repeat=True)
     batch = next(batches)
+    if mixed_precision == "no":
+        dropout_determinism(pc2, batch, draw, dev)
     with torch.no_grad():
         before = float(pc2.loss(batch, noise))
     counts, losses, ms, peak, state = run_training(
@@ -1091,6 +1163,36 @@ def pc2_training(dev, mixed_precision, steps=4):
           json.dumps({k: v / steps for k, v in launches.items()}))
     return dict(launches=launches, step_ms=ms, peak_gib=peak, losses=losses,
                 zero_gradients_behind_dead_gates=behind_dead)
+
+
+def dropout_determinism(pc2, batch, draw, dev):
+    """Three evaluations of the loss in training mode (dropout p = 0.1),
+    with the same timesteps and noise and the masks from `TrainNoise`'s
+    seed: 1, 1, 2. The first two agree within 1e-6 relative, the third
+    differs. The head is made visible for them (under PC2's 1e-6 head the
+    masks move the loss by less than a float32 ulp) and restored after."""
+    import torch
+    from bdm_tpu_torch.samplers import TrainNoise
+    head = pc2.backbone.classifier[2].weight
+    kept = head.detach().clone()
+    pc2.train()
+    try:
+        with torch.no_grad():
+            head.copy_(torch.randn(head.shape, generator=torch.Generator()
+                                   .manual_seed(5)).to(dev) * 0.1)
+            losses = [float(pc2.loss(batch, TrainNoise(seed, dev,
+                                                       replay=[draw])))
+                      for seed in (1, 1, 2)]
+    finally:
+        pc2.eval()
+        with torch.no_grad():
+            head.copy_(kept)
+    print(f"PC2 float32 loss with dropout 0.1, TrainNoise seeds 1, 1, 2: "
+          f"{losses}")
+    if not abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[0]):
+        fail(f"dropout: one seed gave two losses {losses[:2]}")
+    if losses[2] == losses[0]:
+        fail(f"dropout: seeds 1 and 2 gave the same loss {losses[0]}")
 
 
 def wide_and_fusion_training(merge, dev):

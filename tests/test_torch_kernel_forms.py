@@ -2,6 +2,18 @@
 (`csrc/attention.cu`, `csrc/conv3d.cu`), on the CPU at small sizes: what
 surrounds the CUDA code and can be said in PyTorch.
 
+  * the CUDA-core (float32) attention kernel's partition: eight lanes a
+    query row, keys tk + 8 j and channels 4 tk + 32 ct a lane, the row
+    maximum and sum reduced over the eight lanes by xor shuffles, the
+    tile-wise rescale; and the CUDA-core conv's two implicit GEMMs on its
+    packed (Kp, Cout_p) weights: im2col tiles (K tap-outer and
+    channel-inner in 4-channel pieces, 16-deep stages) and, where
+    R % 8 == 0, halo tiles (4-channel chunks outer, the 27 taps shifted
+    views of a staged 4 x 10 x 10 halo), each tile covered once by its
+    threads.
+    float32 1e-5 of the largest entry against the plain version and the
+    Pallas kernel in interpret mode (the conv on bf16-representable inputs,
+    which the Pallas conv rounds to bfloat16);
   * the tiled online softmax of the attention kernel, emulated with its
     roundings (probabilities rounded to v's type for the second product,
     the row sum taken over the unrounded float32 probabilities, float32
@@ -39,7 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from bdm_tpu.ops.pallas.attention import attention_pallas
+from bdm_tpu.ops.pallas.conv3d import conv3d_pallas
 from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
+from bdm_tpu.ops.sampling import furthest_point_sample as jax_fps
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.pvcnn import VoxConv
 from bdm_tpu_torch.ops.cuda import (attention as k_attn, conv3d as k_conv,
@@ -110,6 +124,177 @@ def test_tiled_softmax_first_tile_and_masked_keys():
     assert _rel(whole, one) < 1e-5
 
 
+ROW_LANES = 8   # lanes that share a query row in `attention_simt_kernel`
+
+
+def _lane_reduce(x, op):
+    """The three xor shuffles (1, 2, 4) over the last axis of 8 lanes."""
+    lane = torch.arange(ROW_LANES)
+    for d in (1, 2, 4):
+        x = op(x, x[..., lane ^ d])
+    return x
+
+
+def attention_simt(q, k, v, tile=64):
+    """`attention_simt_kernel` of csrc/attention.cu in PyTorch: its block,
+    lane partition, lane-reduced row maximum and sum, and tile-wise
+    rescale; channels zero-padded to CP."""
+    dt = v.dtype
+    b, s, c = q.shape
+    cp = 32 if c <= 32 else 64 if c <= 64 else 128
+    tq, threads = (8, 256) if cp <= 64 else (4, 128)
+    bq = tq * threads // ROW_LANES
+    # every query row of a block and every channel once: lane (row group
+    # rg, tk) owns rows rg * tq + i, keys tk + 8 j and channels
+    # 4 tk + 32 ct + e
+    rows = sorted(rg * tq + i for rg in range(threads // ROW_LANES)
+                  for i in range(tq))
+    assert rows == list(range(bq))
+    chans = sorted(4 * tk + 32 * ct + e for tk in range(ROW_LANES)
+                   for ct in range(cp // 32) for e in range(4))
+    assert chans == list(range(cp))
+    keys = sorted(tk + 8 * j for tk in range(ROW_LANES) for j in range(8))
+    assert keys == list(range(tile))
+    ntiles = -(-s // tile)
+    pad = lambda t, rows: F.pad(t.float(), (0, cp - c, 0, rows - s))
+    qf, kf, vf = pad(q, s), pad(k, ntiles * tile), pad(v, ntiles * tile)
+    out = torch.zeros(b, s, cp)
+    row_max = torch.full((b, s, 1), -math.inf)
+    lane_sum = torch.zeros(b, s, ROW_LANES)      # each lane's share
+    for k0 in range(0, ntiles * tile, tile):
+        logits = qf @ kf[:, k0:k0 + tile].transpose(1, 2)
+        logits[..., s - k0:] = -math.inf        # keys from s on
+        # key tk + 8 j of the tile sits in lane tk: (j, tk)
+        lanes = logits.reshape(b, s, 8, ROW_LANES)
+        mx = _lane_reduce(lanes.amax(2), torch.maximum)
+        assert (mx == mx[..., :1]).all()        # every lane has the row's
+        new_max = torch.maximum(row_max, mx[..., :1])
+        scale = torch.exp2((row_max - new_max) * LOG2E)
+        p = torch.exp2(logits * LOG2E - new_max * LOG2E)
+        lane_sum = lane_sum * scale + p.reshape(b, s, 8, ROW_LANES).sum(2)
+        out = out * scale + p.to(dt).float() @ vf[:, k0:k0 + tile]
+        row_max = new_max
+    row_sum = _lane_reduce(lane_sum, torch.add)[..., :1]
+    return (out * (1.0 / row_sum))[..., :c].to(dt)
+
+
+@pytest.mark.parametrize("s,c", [(64, 16), (125, 12), (125, 48), (200, 64),
+                                 (70, 128)], ids=lambda v: str(v))
+def test_attention_simt_partition(s, c):
+    rng = np.random.default_rng(s * c)
+    q, k, v = (torch.from_numpy(
+        rng.standard_normal((2, s, c)).astype(np.float32) * 0.7)
+        for _ in range(3))
+    got = attention_simt(q, k, v)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel(got, k_attn.attention_plain(q, k, v)) < TOL[torch.float32]
+    pallas = attention_pallas(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    assert _rel(got, torch.from_numpy(np.array(pallas))) < TOL[torch.float32]
+
+
+def conv_simt(x, weight, bias):
+    """`conv3d_simt_kernel` of csrc/conv3d.cu in PyTorch: the implicit
+    im2col matrix built piece by piece (4 channels of one tap, tap-outer),
+    times the packed weights stage by stage (16 deep), bias in float32."""
+    b, r, cin = x.shape[0], x.shape[1], x.shape[-1]
+    cout = weight.shape[0]
+    bn = k_conv.n_tile(cout)
+    packed = k_conv.gemm_weight(weight, torch.float32)
+    kp, cout_p = packed.shape
+    cin4 = k_conv.padded(cin, k_conv.GEMM_CIN_STEP)
+    assert kp % k_conv.GEMM_K_STEP == 0 and 0 <= kp - 27 * cin4 < 16
+    assert cout_p % bn == 0 and not packed[:, cout:].any()
+    taps = packed[:27 * cin4].reshape(27, cin4, cout_p)
+    assert not taps[:, cin:].any() and not packed[27 * cin4:].any()
+    # a block's BM x BN tile (the source's four tile shapes, BM, TN and
+    # threads): thread t, with LN = BN / TN lanes across N, owns voxels
+    # t // LN + RG i and columns 4 (t % LN) + 4 LN g + e, once each
+    for bm, tn_, threads in {32: [(128, 4, 128), (128, 8, 64)],
+                             64: [(128, 8, 128)]}[bn]:
+        ln = bn // tn_
+        rg = threads // ln
+        cells = sorted((t // ln + rg * i, 4 * (t % ln) + 4 * ln * g + e)
+                       for t in range(threads) for i in range(bm // rg)
+                       for g in range(tn_ // 4) for e in range(4))
+        assert cells == [(m, n) for m in range(bm) for n in range(bn)]
+    halo = F.pad(x.float(), (0, cin4 - cin, 1, 1, 1, 1, 1, 1))
+    npt = cin4 // 4
+    cols = torch.zeros(b * r ** 3, kp)
+    for piece in range(27 * npt):
+        tap, c0 = divmod(piece, npt)
+        kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+        cols[:, 4 * piece:4 * piece + 4] = halo[
+            :, kd:kd + r, kh:kh + r, kw:kw + r,
+            4 * c0:4 * c0 + 4].reshape(-1, 4)
+    acc = torch.zeros(b * r ** 3, cout_p)
+    for k0 in range(0, kp, k_conv.GEMM_K_STEP):
+        acc += cols[:, k0:k0 + 16] @ packed[k0:k0 + 16]
+    out = acc + k_conv.pack_bias(bias, cout_p)
+    return out[:, :cout].reshape(b, r, r, r, cout)
+
+
+def conv_simt_halo(x, weight, bias):
+    """`conv3d_simt_halo_kernel` of csrc/conv3d.cu (R % 8 == 0) in PyTorch:
+    TZ x 8 x 8 output tiles (TZ 4 at Cout > 32, 2 below); per chunk of 4
+    input channels the tile's (TZ + 2) x 10 x 10 halo and the chunk's
+    weights of all 27 taps, the taps shifted views of the halo; the same
+    packed weights."""
+    b, r, cin = x.shape[0], x.shape[1], x.shape[-1]
+    cout = weight.shape[0]
+    tz, threads = (2, 128) if k_conv.n_tile(cout) == 32 else (4, 256)
+    assert r % 8 == 0 and r % tz == 0
+    packed = k_conv.gemm_weight(weight, torch.float32)
+    cout_p = packed.shape[1]
+    cin4 = k_conv.padded(cin, k_conv.GEMM_CIN_STEP)
+    # a block's 64 TZ voxels: with 8 lanes across N, thread t's rows
+    # t // 8 + RG i (RG = threads / 8) are voxels of the row-major tile,
+    # once each
+    rg = threads // 8
+    rows = sorted(t // 8 + rg * i for t in range(0, threads, 8)
+                  for i in range(64 * tz // rg))
+    assert rows == list(range(64 * tz))
+    grid = F.pad(x.float(), (0, cin4 - cin, 1, 1, 1, 1, 1, 1))
+    out = torch.zeros(b, r, r, r, cout_p)
+    for z0 in range(0, r, tz):
+        for y0 in range(0, r, 8):
+            for x0 in range(0, r, 8):
+                halo = grid[:, z0:z0 + tz + 2, y0:y0 + 10, x0:x0 + 10]
+                acc = torch.zeros(b, tz, 8, 8, cout_p)
+                for c0 in range(0, cin4, 4):
+                    for tap in range(27):
+                        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
+                        view = halo[:, dz:dz + tz, dy:dy + 8, dx:dx + 8,
+                                    c0:c0 + 4]
+                        rows = packed[tap * cin4 + c0:tap * cin4 + c0 + 4]
+                        acc += view @ rows
+                out[:, z0:z0 + tz, y0:y0 + 8, x0:x0 + 8] = acc
+    out += k_conv.pack_bias(bias, cout_p)
+    return out[..., :cout]
+
+
+@pytest.mark.parametrize("cin,cout,r", [(3, 8, 5), (6, 32, 4), (16, 40, 4),
+                                        (13, 70, 3), (1, 1, 2), (3, 8, 8),
+                                        (6, 70, 8)],
+                         ids=lambda v: str(v))
+def test_conv_simt_tap_order(cin, cout, r):
+    rng = np.random.default_rng(cin * cout)
+    # values a bfloat16 holds: the Pallas conv's casts are exact then
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(
+        torch.bfloat16).float()
+    x = bf(rng.standard_normal((2, r, r, r, cin)))
+    w = bf(rng.standard_normal((cout, cin, 3, 3, 3)) * (27 * cin) ** -0.5)
+    bias = bf(rng.standard_normal(cout))
+    # the source's rule: halo tiles where R % 8 == 0, else im2col tiles
+    got = (conv_simt_halo if r % 8 == 0 else conv_simt)(x, w, bias)
+    assert _rel(got, k_conv.conv3d_plain(x, w, bias)) < TOL[torch.float32]
+    if r % 8 == 0:
+        assert _rel(got, conv_simt(x, w, bias)) < TOL[torch.float32]
+    pallas = conv3d_pallas(jnp.asarray(x.numpy()),
+                           jnp.asarray(w.permute(2, 3, 4, 1, 0).numpy()),
+                           jnp.asarray(bias.numpy()), r, True)
+    assert _rel(got, torch.from_numpy(np.array(pallas))) < TOL[torch.float32]
+
+
 def _conv_by_taps(x, packed, bias_p, cout):
     """Packed weights times the 27 shifted views of the zero-padded grid,
     channels padded to Cin_p: the conv kernel's sum."""
@@ -156,9 +341,10 @@ def test_packed_cache_follows_the_parameter(how):
     w0, b0 = k_conv.packed(*args)
     w1, b1 = k_conv.packed(*args)
     assert w1 is w0 and b1 is b0 and k_conv.packs == before + 1
-    # the float32 layout is a second entry of the same weight
+    # the float32 layout is a second entry of the same weight: (Kp,
+    # Cout_p), the 6 channels of a tap padded to 8, 27 * 8 to 224 rows
     g0, _ = k_conv.packed(conv.weight, conv.bias, torch.float32)
-    assert g0.shape == (27 * 6, 8) and k_conv.packed(*args)[0] is w0
+    assert g0.shape == (224, 32) and k_conv.packed(*args)[0] is w0
     if how == "add_":
         with torch.no_grad():
             conv.weight.add_(1.0)
@@ -315,13 +501,27 @@ def test_fps_lowest_lane_is_not_lowest_index():
     assert k_fps.furthest_point_sample_plain(x, 2)[0, 1] == 2
 
 
-@pytest.mark.parametrize("n", [64, 96, 256, 1000, 1024, 2048, 4096, 14528])
+@pytest.mark.parametrize("n", [64, 96, 256, 1000, 1024, 2048, 4096, 14528,
+                               16384, 20000, 40000])
 def test_fps_threads(n):
     t = k_fps.threads(n)
     assert t % 32 == 0 and 32 <= t <= 1024
     k = -(-n // t)
-    assert k <= 16                     # the source's largest K
     assert t == 1024 or t >= n / k_fps.POINTS_A_THREAD
+    # points a thread: K, a power of two, in registers up to K 16 (N
+    # 16,384), streamed above it, so every N has a kernel
+    kp = k_fps.points(n)
+    assert kp >= k and kp < 2 * k and kp & (kp - 1) == 0
+    assert (kp <= k_fps.MAX_REGISTER_POINTS) == (n <= 16384)
+
+
+def test_fps_plain_matches_jax_at_n16384():
+    """The plain version, which the card's indices are held to at N past
+    the registers' K 16, against the JAX FPS with Pallas off."""
+    x = _fps_cloud("random", 16384)
+    got = k_fps.furthest_point_sample_plain(torch.from_numpy(x), 64)
+    want = jax_fps(jnp.asarray(x), 64, use_pallas=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # --------------------------------------------------------- scatter-mean

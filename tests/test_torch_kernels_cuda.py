@@ -22,8 +22,15 @@ lattice, exact duplicates) at every PVCNN2 level and at N that is no
 multiple of the block; the scatter-mean with every point in one voxel and
 with every point in a voxel of its own, at row widths that take each vector
 width, bit for bit against the plain version on the CPU (one rounding of
-float32 sums in the same order).
+float32 sums in the same order). Float32 attention and conv3d are held at
+every shape `chip_smoke.py` lists for the paths (`ATTNS`, `CONVS`), FPS past
+the points a thread holds in registers (`FPS_LARGE`, up to N 40,000), and a
+float32 PC2 loss with dropout on is a function of its `TrainNoise` seed
+(1e-6 relative).
 """
+
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
@@ -38,6 +45,11 @@ from bdm_tpu_torch.ops.cuda import (_lib, attention as k_attn,
                                     voxelize as k_vox)
 
 pytestmark = pytest.mark.cuda
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -348,3 +360,77 @@ def test_scatter_mean_refuses_misaligned_features(dev):
     with pytest.raises(ValueError):
         k_vox.scatter_mean(f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 8,
                            torch.bfloat16, ids=ctx.ids)
+
+
+@pytest.mark.parametrize("s,c", chip_smoke.ATTNS, ids=lambda v: str(v))
+def test_float32_attention_at_path_shapes(dev, s, c):
+    q, k, v = (_cloud(dev, 2, s, c, seed=50 + i) * 0.3 for i in range(3))
+    kernels.reset_counts()
+    out = k_attn.attention(q, k, v)
+    assert kernels.path_counts()["attention"] == {"tc": 0, "simt": 1}
+    assert _rel(out, k_attn.attention_plain(q, k, v)) < 1e-4
+
+
+@pytest.mark.parametrize("cin,cout,r", chip_smoke.CONVS, ids=lambda v: str(v))
+def test_float32_conv3d_at_path_shapes(dev, cin, cout, r):
+    x = _cloud(dev, 2, r, r, r, cin, seed=60)
+    wt = _cloud(dev, cout, cin, 3, 3, 3, seed=61) * (27 * cin) ** -0.5
+    bias = _cloud(dev, cout, seed=62) * 0.1
+    kernels.reset_counts()
+    out = k_conv.conv3d(x, wt, bias)
+    assert kernels.path_counts()["conv3d"] == {"tc": 0, "simt": 1}
+    assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-4
+
+
+@pytest.mark.parametrize("n,m", chip_smoke.FPS_LARGE, ids=lambda v: str(v))
+def test_fps_past_the_registers(dev, n, m):
+    """Clouds whose points a thread cannot hold in registers (K 16 at
+    1,024 threads) take the streamed variant: the same indices."""
+    x = _cloud(dev, 2, n, 3, seed=n)
+    assert torch.equal(k_fps.furthest_point_sample(x, m),
+                       k_fps.furthest_point_sample_plain(x, m))
+    lib = _lib.library()
+    assert (lib.bdm_fps_threads(n), lib.bdm_fps_points(n)) == (
+        k_fps.threads(n), k_fps.points(n))
+    assert k_fps.points(n) > k_fps.MAX_REGISTER_POINTS or n == 16384
+
+
+def test_dropout_is_a_function_of_the_seed_on_the_card(dev):
+    """A tiny float32 PC2 loss in training mode (dropout 0.1) with one
+    draw of timesteps and noise: the masks of `TrainNoise` seed 1 give one
+    loss twice, seed 2 another."""
+    from bdm_tpu_torch.samplers import PC2Model, TrainNoise
+    from bdm_tpu_torch.tools.standins import training_batches
+    pc2 = PC2Model(chip_smoke.tiny_config(), chip_smoke.TINY_SA,
+                   chip_smoke.TINY_FP, device=dev, dropout=0.1)
+    pc2.reset_parameters(0)
+    with torch.no_grad():      # a visible head: under PC2's 1e-6 one the
+        head = pc2.backbone.classifier[2].weight    # masks barely show
+        head.copy_(torch.randn(head.shape, generator=torch.Generator()
+                               .manual_seed(5)).to(dev) * 0.1)
+    batch = next(training_batches(1, 2, 64, dev, image_size=16))
+    g = torch.Generator().manual_seed(3)
+    draw = (torch.tensor([3, 700]), torch.randn(2, 64, 3, generator=g))
+    pc2.train()
+    with torch.no_grad():
+        losses = [float(pc2.loss(batch, TrainNoise(seed, dev, replay=[draw])))
+                  for seed in (1, 1, 2)]
+    pc2.eval()
+    assert abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[0])
+    assert losses[2] != losses[0]
+
+
+@pytest.mark.parametrize("cin,cout,r", [(3, 7, 8), (390, 30, 8),
+                                        (6, 130, 16), (1, 1, 8)],
+                         ids=lambda v: str(v))
+def test_float32_conv3d_halo_tiles(dev, cin, cout, r):
+    """Grids whose R is a multiple of 8 take the float32 kernel's halo
+    tiles: odd and even Cin (4- and 8-byte copies), Cout no multiple of 4
+    or of the N tile; on a batch slice as on the whole."""
+    whole = _cloud(dev, 3, r, r, r, cin, seed=70)
+    wt = _cloud(dev, cout, cin, 3, 3, 3, seed=71) * (27 * cin) ** -0.5
+    bias = _cloud(dev, cout, seed=72) * 0.1
+    for x in (whole[:2], whole[1:]):
+        out = k_conv.conv3d(x, wt, bias)
+        assert out.shape == (2, r, r, r, cout)
+        assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-4

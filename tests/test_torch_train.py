@@ -3,11 +3,17 @@ against `bdm_tpu`, on the CPU at float32 with tiny specs.
 
 One set of JAX parameters per module (the `World` of
 tests/test_torch_merging.py: a tiny PC2 and PVD with visible heads and the
-fusion tree made of them with live zero-convs). Flax's dropout mask cannot
-be replayed, so both sides run with dropout 0: the JAX backbones are
-cloned with `dropout=0.0` (nothing in `bdm_tpu` changes) and the port's
-`nn.Dropout`s are set to p = 0. Timesteps and noise replay the JAX key
-tree (`k_t, k_noise, k_drop = split(key, 3)`) through `TrainNoise`.
+fusion tree made of them with live zero-convs). Most tests run both sides
+with dropout 0: the JAX backbones are cloned with `dropout=0.0` (nothing in
+`bdm_tpu` changes) and the port's `Dropout`s are set to p = 0. Timesteps
+and noise replay the JAX key tree (`k_t, k_noise, k_drop = split(key, 3)`)
+through `TrainNoise`. At p = 0.1 flax's keep-masks are replayed too: they
+are captured inside the traced loss with `flax.linen.intercept_methods`
+around each `nn.Dropout` call (keep-mask = output != 0, over inputs that
+are all non-zero) and handed to the port through `TrainNoise(replay=...)`
+as the third item of a step. The port's own masks come from a generator
+that `TrainNoise` seeds: one seed gives one step bit for bit, another seed
+another step.
 
 Tolerances: a loss within 1e-5 relative; every parameter's gradient within
 1e-4 of that tensor's largest entry (float32 sums taken in another order
@@ -56,6 +62,7 @@ T = 1000
 @pytest.fixture(scope="module")
 def world():
     w = World()
+    w.jpc2_dropout_backbone = w.jpc2.backbone      # p = 0.1, as built
     w.jpc2.backbone = w.jpc2.backbone.clone(dropout=0.0)
     w.jpvd.backbone = w.jpvd.backbone.clone(dropout=0.0)
     w.jmerge.fusion = w.jmerge.fusion.clone(dropout=0.0)
@@ -135,6 +142,68 @@ def test_loss_and_gradients_match_jax(world, name):
     got = {k: p.grad for k, p in model.named_parameters()}
     assert set(got) == set(want)
     _assert_grads_close(got, want)
+    model.zero_grad(set_to_none=True)
+
+
+def _port_dropout(model, p):
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = p
+
+
+def test_pc2_dropout_matches_jax_with_replayed_masks(world):
+    """p = 0.1 on both sides: the JAX loss draws its masks from `k_drop`;
+    they are captured in the traced loss and replayed through
+    `TrainNoise`, one a dropout site in the order the sites run."""
+    import flax.linen as fnn
+    jb, tb = _batches(world)
+    key = jax.random.PRNGKey(33)
+    jpc2 = world.jpc2
+
+    def loss_and_masks(params, k):
+        masks, inputs_nonzero = [], []
+
+        def capture(next_fun, args, kwargs, context):
+            out = next_fun(*args, **kwargs)
+            if (isinstance(context.module, fnn.Dropout)
+                    and context.method_name == "__call__"):
+                masks.append(out != 0)
+                inputs_nonzero.append(jnp.all(args[0] != 0))
+            return out
+
+        with fnn.intercept_methods(capture):
+            loss = jpc2.loss(params, jb, k)
+        return loss, (masks, inputs_nonzero)
+
+    no_dropout, jpc2.backbone = jpc2.backbone, world.jpc2_dropout_backbone
+    try:
+        (want_loss, (masks, nonzero)), want = jax.jit(jax.value_and_grad(
+            loss_and_masks, has_aux=True))(world.pc2_params, key)
+    finally:
+        jpc2.backbone = no_dropout
+    assert len(masks) == 1 + sum(len(stage.convs) for stage in (
+        *world.pc2.backbone.specs.sa_stages,
+        *world.pc2.backbone.specs.fp_stages))
+    assert all(bool(v) for v in nonzero)
+    masks = [np.array(m) for m in masks]
+    assert all(0.8 < m.mean() < 0.97 for m in masks)   # p = 0.1 dropped
+    want = CJ.grads_state_dict(jax.tree_util.tree_map(np.asarray, want),
+                               world.pc2.backbone.specs)
+    model = world.pc2
+    noise = TrainNoise(device="cpu", replay=[(*_replay(key), masks)])
+    model.zero_grad(set_to_none=True)
+    _port_dropout(model, 0.1)
+    model.train()
+    try:
+        loss = model.loss(tb, noise)
+    finally:
+        model.eval()
+        _port_dropout(model, 0.0)
+    assert next(noise.masks, None) is None          # every mask was used
+    loss.backward()
+    assert abs(loss.item() - float(want_loss)) <= 1e-5 * float(want_loss)
+    _assert_grads_close({k: p.grad for k, p in model.named_parameters()},
+                        want)
     model.zero_grad(set_to_none=True)
 
 
@@ -547,6 +616,55 @@ def test_train_noise():
     with pytest.raises(ValueError):
         TrainNoise(device="cpu", replay=[(np.zeros(3), np.zeros((4, 8, 3)))]
                    ).draw((4, 8, 3), T)
+
+
+def test_train_noise_dropout_masks():
+    """Keep-masks from a generator of their own, seeded from the seed:
+    reproducible, independent of the timesteps' stream, Bernoulli(1 - p);
+    a replayed mask of the wrong shape or one too few raises."""
+    a, b_, c = (TrainNoise(s, "cpu") for s in (3, 3, 4))
+    m1, m2, m3 = (n.keep_mask((64, 128), 0.1) for n in (a, b_, c))
+    assert m1.dtype == torch.bool and m1.shape == (64, 128)
+    assert torch.equal(m1, m2) and not torch.equal(m1, m3)
+    assert 0.85 < m1.float().mean().item() < 0.95
+    t1, _ = a.draw((4, 8, 3), T)
+    t2, _ = TrainNoise(3, "cpu").draw((4, 8, 3), T)
+    assert torch.equal(t1, t2)          # masks drew nothing from it
+    draw = (np.zeros(2), np.zeros((2, 8, 3)), [np.ones((2, 5), bool)])
+    n = TrainNoise(device="cpu", replay=[draw, draw])
+    n.draw((2, 8, 3), T)
+    assert n.keep_mask((2, 5), 0.1).all()
+    with pytest.raises(ValueError):
+        n.keep_mask((2, 5), 0.1)
+    n.draw((2, 8, 3), T)
+    with pytest.raises(ValueError):
+        n.keep_mask((2, 6), 0.1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dropout_step_is_a_function_of_the_seed(seed):
+    """One training step at p = 0.1 from one `TrainNoise` seed is bit-equal
+    twice on the CPU, whatever PyTorch's global generator holds; another
+    seed (same timesteps and noise) gives another loss."""
+    batch = next(_batch_iter())
+    draw = [(np.array([3, 700]), np.random.default_rng(0).standard_normal(
+        (2, 32, 3)).astype(np.float32))]
+
+    def one_step(noise_seed, global_seed):
+        pc2 = _tiny_pc2()
+        state = create_train_state(pc2, make_optimizer(pc2, lr=1e-2))
+        with torch.random.fork_rng():
+            torch.manual_seed(global_seed)
+            m = make_train_step(pc2.loss)(
+                state, batch, TrainNoise(noise_seed, "cpu", replay=draw))
+        return float(m["loss"]), [p.detach() for p in pc2.parameters()]
+
+    loss, params = one_step(seed, 0)
+    again, params_again = one_step(seed, 1)
+    assert loss == again
+    assert all(torch.equal(p, q) for p, q in zip(params, params_again))
+    other, _ = one_step(seed + 2, 0)
+    assert other != loss
 
 
 def test_forward_noising_matches_jax(world):
