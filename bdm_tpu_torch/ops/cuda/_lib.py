@@ -37,7 +37,8 @@ _SIGNATURES = {
     "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "bdm_interp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bdm_scatter_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "bdm_scatter_sum": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bdm_scatter_sum": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P),
     "bdm_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the sources' own rules, which the wrappers mirror

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bdm_tpu_torch.ops.cuda import _lib
 from bdm_tpu_torch.ops.cuda.fps import sqdist
@@ -37,6 +38,8 @@ def ball_query_plain(centers: torch.Tensor, points: torch.Tensor,
     # a hit keeps its index as key, a miss is pushed past N: the U smallest
     # keys are the first U hits in scan order
     keys = torch.where(d2 < radius_squared(radius), ids, ids + n)
+    if n < u:   # fewer points than slots: pad with misses
+        keys = F.pad(keys, (0, u - n), value=2 * n)
     hits = torch.topk(keys, u, dim=-1, largest=False, sorted=True).values
     first = hits[..., :1]
     pad = torch.where(first < n, first, torch.zeros_like(first))

@@ -37,10 +37,14 @@ from bdm_tpu_torch.tools.standins import (camera, production_models,
 from bdm_tpu_torch.train import (create_train_state, make_optimizer,
                                  make_train_step, pc2_freeze_mask)
 
+# a kernel falls in the first group whose name its own name carries; the
+# sources name their kernels after themselves, so the prefixes "scatter_sum"
+# and "ball_query" gather every kernel of scatter_sum.cu (count, scan,
+# place, run) and of ball_query.cu
 KERNELS = ("conv3d_tc_kernel", "conv3d_simt_kernel",
            "conv3d_simt_halo_kernel", "attention_tc_kernel",
            "attention_simt_kernel", "fps_kernel",
-           "scatter_mean_kernel", "scatter_sum_kernel", "ball_query_kernel",
+           "scatter_mean_kernel", "scatter_sum", "ball_query",
            "three_nn_kernel", "interp_kernel")
 # cuDNN's convolution kernels by the words their names carry
 CUDNN = ("cudnn", "wgrad", "dgrad", "xmma", "convolve", "implicit_gemm")

@@ -20,11 +20,17 @@ Phases, in the order they run (any failure exits non-zero):
      before (a constant, so it stays out of the `kernels` line); FPS also on
      tie-heavy clouds (the integer lattice, exact duplicates) at every level
      and at N that is no multiple of its block, with the time of its rounds
-     without the distance work (the floor of its design); scatter-mean with
-     its vector and lanes rule against the source's and float32 bit for bit
-     against the CPU; beside the times of fps and scatter-mean, those of
-     the kernels they replaced (`BEFORE_MS`); the float32 attention at C 64
-     and 128 against the float32 fused attention, and the float32 conv
+     without the distance work (the floor of its design); ball query on
+     those clouds at every level, on the lattice at r = 1.0 (a face
+     neighbour at d2 = r2 exactly is out) and at N < U, timed at the five
+     shapes of the paths; scatter-sum equal to the CPU's `index_add_` bit
+     for bit (float32 and bf16 rows, ids -1 and S dropped, every row on one
+     id) at the two shapes of the blend's backward, beside `index_add_`'s
+     time at both; scatter-mean with its vector and lanes rule against the
+     source's and float32 bit for bit against the CPU; beside the times of
+     fps, ball query, scatter-sum and scatter-mean, those of the kernels
+     they replaced (`BEFORE_MS`); the float32 attention at C 64 and 128
+     against the float32 fused attention, and the float32 conv
      (no TF32 in the library call) at 64 -> 64 and 390 -> 32 and 32 -> 32
      R 32, 128 -> 128 R 9 and 512 -> 512 R 8, beside the recorded times of
      the float32 kernels they replaced (`REPLACED_F32_MS`); FPS past what a
@@ -161,12 +167,18 @@ REPLACED_F32_MS = {
 # (N, M): N 16,384 is the reference's `dataset.max_points`
 FPS_LARGE = [(16384, 4096), (20000, 5000), (40000, 10000)]
 
-# Times of the FPS and scatter-mean kernels that the present ones replaced:
-# ms at B=8 on an NVIDIA H100 80GB HBM3 at 700.00 W, one launch between CUDA
-# events (PERF.md section 6 keeps them in rows 1, 6 and 7).
-BEFORE_MS = {"fps N4096 M1024": 1.0275, "scatter_mean bf16 C390 R32": 0.4598,
-          "scatter_mean f32 C64 R32 mean": 0.1144,
-          "scatter_mean f32 C64 R32 sum": 0.1093}
+# Times of the kernels that the present ones replaced: ms at B=8 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, with how they were timed: one launch
+# between CUDA events or launches back to back behind a matmul (PERF.md
+# section 6 keeps them in rows 1, 2, 6, 7 and 8)
+BEFORE_MS = {
+    "fps N4096 M1024": (1.0275, "one launch"),
+    "scatter_mean bf16 C390 R32": (0.4598, "one launch"),
+    "scatter_mean f32 C64 R32 mean": (0.1144, "one launch"),
+    "scatter_mean f32 C64 R32 sum": (0.1093, "one launch"),
+    "ball_query N4096 M1024 r0.1": (0.3366, "one launch"),
+    "scatter_sum N12288 S1024 C128": (0.1113, "back to back"),
+    "scatter_sum N3072 S256 C256": (0.0240, "back to back")}
 
 
 # Phase a holds conv3d at the convs of PC2, PVD and the fusion network,
@@ -268,6 +280,7 @@ def check_kernels(dev):
     # in shuffled order; then N that is no multiple of the block or of 32
     lattice = torch.stack(torch.meshgrid(*[torch.arange(4.0)] * 3,
                                          indexing="ij"), -1).reshape(-1, 3)
+    ties = {}
     for n, m in [(n, m) for n, m, _ in levels] + [(96, 96), (1000, 300),
                                                     (64, 64)]:
         half = randn(b, -(-n // 2), 3)
@@ -277,6 +290,7 @@ def check_kernels(dev):
                       :, torch.randperm(n, generator=g)].contiguous()}
         if n % 32:
             clouds["random"] = randn(b, n, 3)
+        ties[n, m] = clouds
         for kind, x in clouds.items():
             if not torch.equal(fps.furthest_point_sample(x, m),
                                fps.furthest_point_sample_plain(x, m)):
@@ -331,20 +345,44 @@ def check_kernels(dev):
         # each of M - 1 rounds: N distances, a min and an argmax compare
         **bound([p0, idx.new_empty((b, 1024))], b * 1023 * 4096 * 10, "f32"))
 
+    def hold_ball_query(c, x, r, what):
+        got = ball_query.ball_query(c, x, r, 32)
+        if not torch.equal(got, ball_query.ball_query_plain(c, x, r, 32)):
+            fail(f"ball_query differs {what}")
+        return got
+
     for n, m, r in levels:
-        a = ball_query.ball_query(pts[m], pts[n], r, 32)
-        if not torch.equal(a, ball_query.ball_query_plain(pts[m], pts[n], r,
-                                                          32)):
-            fail(f"ball_query differs at N={n}, M={m}, r={r}")
+        a = hold_ball_query(pts[m], pts[n], r, f"at N={n}, M={m}, r={r}")
+        # the tie clouds of the FPS loop, their centres by FPS
+        for kind, x in ties[n, m].items():
+            c = ops.gather(x, fps.furthest_point_sample(x, m)).contiguous()
+            hold_ball_query(c, x, r, f"on the {kind} cloud at N={n}")
+    # the lattice at r = 1.0: a face neighbour lies at d2 = r2 exactly and
+    # is out (strict <); then fewer points than slots
+    lat = ties[4096, 1024]["lattice"]
+    hold_ball_query(lat[:, :1024].contiguous(), lat, 1.0,
+                    "on the lattice at r=1.0")
+    few = pts[4096][:, :20].contiguous()
+    hold_ball_query(few[:, :8].contiguous(), few, 0.4, "at N=20 < U=32")
     # the scan of a centre may stop at its 32nd hit: count the pairs this
     # data needs, not all M * N
     hits = (fps.sqdist(c0[:, :, None, :], p0[:, None, :, :])
             < torch.tensor(0.1, device=dev) ** 2).cumsum(-1)
     scanned = torch.where(hits[..., -1] >= 32,
                           (hits < 32).sum(-1) + 1, 4096).sum().item()
+    # back to back at every shape of the paths: the four SA levels and the
+    # first level of PVD at twice the width
+    by_shape = {f"N{n}_M{m}": timed_ms(
+        lambda: ball_query.ball_query(pts[m], pts[n], r, 32), inner=10)
+        for n, m, r in levels}
+    by_shape["N2048_M1024"] = timed_ms(
+        lambda: ball_query.ball_query(half, pts[2048], 0.1, 32), inner=10)
     res["ball_query"] = dict(
         max_abs_err=0.0,
-        ms=timed_ms(lambda: ball_query.ball_query(c0, p0, 0.1, 32)),
+        ms=by_shape["N4096_M1024"], ms_by_shape=by_shape,
+        ms_one_launch=timed_ms(lambda: ball_query.ball_query(c0, p0, 0.1,
+                                                             32)),
+        timing="10 launches back to back behind a matmul",
         plain_ms=timed_ms(lambda: ball_query.ball_query_plain(c0, p0, 0.1,
                                                               32)),
         library_ms=None,
@@ -403,7 +441,8 @@ def check_kernels(dev):
     # summed into M centres by the unsorted three-NN indices. The card's
     # `index_add_` adds with atomics in an order that changes from run to
     # run: 1e-5 of the largest sum; the CPU's adds in index order, as the
-    # kernel does
+    # kernel does: equal bit for bit, for float32 and bf16 rows, with ids
+    # -1 and S (dropped) and with every row on one id
     err = 0.0
     by_shape = {}
     for n, m, c in ((1024, 256, 256), (4096, 1024, 128)):
@@ -412,28 +451,38 @@ def check_kernels(dev):
         sums = scatter_sum.scatter_sum(rows, ids, m)
         err = max(err, rel_err(sums, scatter_sum.scatter_sum_plain(
             rows, ids, m), 1e-5, f"scatter_sum N={3 * n} S={m} C={c}"))
-        on_cpu = scatter_sum.scatter_sum_plain(rows.cpu(), ids.cpu(), m)
-        print(f"scatter_sum N={3 * n} S={m} C={c}: equal to the CPU's "
-              f"index_add_ bit for bit: {torch.equal(sums.cpu(), on_cpu)}")
-        rb = rows.to(torch.bfloat16)
-        rel_err(scatter_sum.scatter_sum(rb, ids, m),
-                scatter_sum.scatter_sum_plain(rb, ids, m), 1e-5,
-                f"scatter_sum bf16 rows N={3 * n}")
-        by_shape[f"N{3 * n}_S{m}_C{c}"] = timed_ms(
-            lambda: scatter_sum.scatter_sum(rows, ids, m), inner=20)
-    sdst = (ids.long() + torch.arange(b, device=dev)[:, None] * m).reshape(-1)
-    flat_rows = rows.reshape(-1, c)
-    sacc = torch.empty((b * m, c), device=dev)
+        dropped = ids.clone()
+        dropped[:, ::7] = -1
+        dropped[:, 3::11] = m
+        cases = {"float32 rows": (rows, ids),
+                 "bf16 rows": (rows.to(torch.bfloat16), ids),
+                 "ids -1 and S": (rows, dropped),
+                 "every row on one id": (rows, torch.full_like(ids, m // 2))}
+        for what, (x, i) in cases.items():
+            if not torch.equal(scatter_sum.scatter_sum(x, i, m).cpu(),
+                               scatter_sum.scatter_sum_plain(x.cpu(),
+                                                             i.cpu(), m)):
+                fail(f"scatter_sum N={3 * n} S={m} C={c} {what}: not the "
+                     f"CPU's index_add_ bit for bit")
+        sdst = (ids.long()
+                + torch.arange(b, device=dev)[:, None] * m).reshape(-1)
+        flat_rows = rows.reshape(-1, c)
+        sacc = torch.empty((b * m, c), device=dev)
+        by_shape[f"N{3 * n}_S{m}_C{c}"] = dict(
+            ms=timed_ms(lambda: scatter_sum.scatter_sum(rows, ids, m),
+                        inner=20),
+            ms_one_launch=timed_ms(
+                lambda: scatter_sum.scatter_sum(rows, ids, m)),
+            library_ms=timed_ms(
+                lambda: sacc.zero_().index_add_(0, sdst, flat_rows),
+                inner=20),
+            # one add a feature
+            **bound([rows, ids, sums], rows.numel(), "f32"))
     res["scatter_sum"] = dict(
-        max_abs_err=err, ms=by_shape["N12288_S1024_C128"],
-        ms_by_shape=by_shape,
+        by_shape["N12288_S1024_C128"], max_abs_err=err, ms_by_shape=by_shape,
         timing="20 launches back to back behind a matmul",
         plain_ms=timed_ms(lambda: scatter_sum.scatter_sum_plain(rows, ids,
-                                                                m)),
-        library_ms=timed_ms(
-            lambda: sacc.zero_().index_add_(0, sdst, flat_rows), inner=20),
-        # one add a feature
-        **bound([rows, ids, sums], rows.numel(), "f32"))
+                                                                m)))
 
     ctxs = {}
     err = 0.0
@@ -680,7 +729,7 @@ def check_kernels(dev):
         for key, val in res[name].items():
             if isinstance(val, dict):
                 print(f"{name} {key}:", json.dumps(val))
-    for name in ("interp_mm", "scatter_sum"):
+    for name in ("interp_mm", "scatter_sum", "ball_query"):
         print(f"{name} by shape, ms:", json.dumps(res[name]["ms_by_shape"]))
     # the new bfloat16 times beside the recorded ones of the CUDA-core kernels
     now = {"attention": {(4096, 64): res["attention"]["ms"],
@@ -714,16 +763,25 @@ def check_kernels(dev):
           f"{fr['ms']:.4f} ms)")
     print("fps past the registers, one launch, ms:",
           json.dumps(fr["ms_one_launch_large_n"]))
+    ss = res["scatter_sum"]["ms_by_shape"]
     redesigned = {
         "fps N4096 M1024": fr,
         "scatter_mean bf16 C390 R32": sm,
         "scatter_mean f32 C64 R32 mean": sm["f32_c64_r32_mean"],
-        "scatter_mean f32 C64 R32 sum": sm["f32_c64_r32_sum"]}
-    for key, before in BEFORE_MS.items():
+        "scatter_mean f32 C64 R32 sum": sm["f32_c64_r32_sum"],
+        "ball_query N4096 M1024 r0.1": res["ball_query"],
+        "scatter_sum N12288 S1024 C128": ss["N12288_S1024_C128"],
+        "scatter_sum N3072 S256 C256": ss["N3072_S256_C256"]}
+    for key, (before, how) in BEFORE_MS.items():
         r = redesigned[key]
+        now = r["ms_one_launch" if how == "one launch" else "ms"]
         print(f"{key}: {r['ms']:.4f} ms back to back, "
               f"{r['ms_one_launch']:.4f} ms one launch (before: {before} ms "
-              f"one launch, {before / r['ms_one_launch']:.2f}x)")
+              f"{how}, {before / now:.2f}x)")
+    for key, r in ss.items():
+        print(f"scatter_sum {key}: {r['ms']:.4f} ms back to back, one "
+              f"PyTorch call (zero_().index_add_) {r['library_ms']:.4f} ms, "
+              f"{r['library_ms'] / r['ms']:.2f}x; bound {r['bound_ms']:.5f}")
     return res, {"conv3d": set(convs), "attention": set(attns),
                  "scatter_mean": set(SITES)}
 

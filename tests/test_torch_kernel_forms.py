@@ -37,7 +37,21 @@ surrounds the CUDA code and can be said in PyTorch.
     ties), exact duplicates and N that is no multiple of T or of 32;
   * the split of a voxel row into lanes and vectors of the scatter-mean
     kernel (`csrc/voxelize.cu`): every channel written once, sums in the
-    run's order, one rounding; equal to the plain version bit for bit.
+    run's order, one rounding; equal to the plain version bit for bit;
+  * the warp-ballot scan of the ball-query kernel (`csrc/ball_query.cu`):
+    groups of 32 points, a hit's slot the count so far plus the hits of the
+    lanes below it, ballots taken in ascending point order, the stop at the
+    step that reaches U, the fill with the first hit; indices exact against
+    the plain version and the Pallas kernel in interpret mode on random
+    clouds, the integer lattice at r = 1.0 (d2 = r2 exactly for the face
+    neighbours), duplicates, N no multiple of 32, N < U and a centre with
+    no hit;
+  * the CSR build of the scatter-sum kernel (`csrc/scatter_sum.cu`): the
+    counts of a tile grouped by id with a rank a row, the scans over tiles
+    and over segments, each row placed at its slot; `order` and `lo` equal
+    a stable sort and a bincount, and the sums over the runs equal the
+    plain version bit for bit, with ids out of range, a crowded segment and
+    N no multiple of the tile.
 """
 
 import importlib.util
@@ -51,13 +65,16 @@ import torch
 import torch.nn.functional as F
 
 from bdm_tpu.ops.pallas.attention import attention_pallas
+from bdm_tpu.ops.pallas.ball_query import ball_query_pallas
 from bdm_tpu.ops.pallas.conv3d import conv3d_pallas
 from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
 from bdm_tpu.ops.sampling import furthest_point_sample as jax_fps
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.pvcnn import VoxConv
-from bdm_tpu_torch.ops.cuda import (attention as k_attn, conv3d as k_conv,
-                                    fps as k_fps, voxelize as k_vox)
+from bdm_tpu_torch.ops.cuda import (attention as k_attn,
+                                    ball_query as k_bq, conv3d as k_conv,
+                                    fps as k_fps, scatter_sum as k_ss,
+                                    voxelize as k_vox)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -535,7 +552,9 @@ def scatter_mean_lanes(features, order, voxel_lo, r, out_dtype, divide,
     b, n, c = features.shape
     vec, lanes = k_vox.kernel_path(features.dtype, out_dtype, c)
     nvec = c // vec
-    per_pass = 1 if nvec <= lanes else 16 // vec
+    # vectors a lane a pass: the least power of two that covers the row,
+    # at most 16 floats a lane (`runs.cuh::pick_u`)
+    per_pass = min(16 // vec, 1 << (-(-nvec // lanes) - 1).bit_length())
     voxels = b * r ** 3
     per_block = threads // lanes
     # the channels each thread of a block stores, pass by pass
@@ -610,3 +629,184 @@ def test_scatter_mean_path(c, r, n):
     assert k_vox.kernel_path(torch.bfloat16, torch.bfloat16, 390) == (2, 32)
     assert k_vox.kernel_path(torch.float32, torch.float32, 64) == (4, 16)
     assert k_vox.kernel_path(torch.bfloat16, torch.float32, 3) == (1, 4)
+
+
+# ---------------------------------------------------------- ball query
+
+LANES = torch.arange(32)
+BELOW = (1 << LANES) - 1            # lanemask_lt of each lane
+
+
+def _popc(x):
+    """Set bits of each entry of an int64 tensor below 2^32."""
+    return sum((x >> k) & 1 for k in range(32))
+
+
+def ball_query_warps(centers, points, radius, u, groups=4):
+    """`ball_query_kernel` of csrc/ball_query.cu in PyTorch: one warp a
+    centre; a step tests `groups` groups of 32 points while the count is
+    below U, their ballots taken in ascending order."""
+    b, m, _ = centers.shape
+    n = points.shape[1]
+    r2 = k_bq.radius_squared(radius)
+    c = centers.reshape(b * m, 1, 3)
+    cloud = points.repeat_interleave(m, 0)               # (B * M, N, 3)
+    w = torch.arange(b * m)
+    count = torch.zeros(b * m, dtype=torch.int64)
+    first = torch.full((b * m,), -1)
+    out = torch.full((b * m, u), -1, dtype=torch.int32)
+    for p0 in range(0, n, 32 * groups):
+        running = count < u                  # the loop's test, a step
+        for g in range(groups):
+            p = p0 + 32 * g + LANES
+            live = p < n
+            d2 = k_fps.sqdist(c, cloud[:, p.clamp(max=n - 1)])
+            hit = running[:, None] & live & (d2 < r2)
+            hits = (hit.long() << LANES).sum(1)                 # the ballot
+            lowest = (hits & -hits).float().log2().long()       # __ffs - 1
+            first = torch.where((first < 0) & (hits != 0), p0 + 32 * g
+                                + lowest, first)
+            slot = count[:, None] + _popc(hits[:, None] & BELOW)
+            keep = hit & (slot < u)
+            out[w[:, None].expand_as(slot)[keep], slot[keep]] = (
+                p.expand_as(slot)[keep].int())
+            count = count + _popc(hits)
+    fill = first.clamp(min=0).int()
+    empty = torch.arange(u)[None] >= count.clamp(max=u)[:, None]
+    out = torch.where(empty, fill[:, None], out)
+    assert (out >= 0).all()
+    return out.reshape(b, m, u)
+
+
+def _bq_cloud(kind, n):
+    rng = np.random.default_rng(n)
+    if kind == "random":
+        return rng.standard_normal((2, n, 3)).astype(np.float32) * 0.3
+    if kind == "lattice":
+        return _fps_cloud("lattice", n)
+    return _fps_cloud("duplicates", n) * 0.3
+
+
+@pytest.mark.parametrize("kind,n,m,r", [
+    ("random", 256, 32, 0.2), ("random", 200, 16, 0.5),
+    ("lattice", 256, 32, 1.0), ("duplicates", 200, 16, 0.3),
+    ("random", 20, 4, 0.4), ("lattice", 20, 4, 1.0)],
+    ids=lambda v: str(v))
+def test_ball_query_warp_ballots(kind, n, m, r):
+    x = _bq_cloud(kind, n)
+    c = x[:, :m].copy()
+    c[:, -1] = 50.0                            # a centre with no hit
+    got = ball_query_warps(torch.from_numpy(c), torch.from_numpy(x), r, 32)
+    want = k_bq.ball_query_plain(torch.from_numpy(c), torch.from_numpy(x), r,
+                                 32)
+    assert torch.equal(got, want)
+    assert (got[:, -1] == 0).all()
+    pallas = ball_query_pallas(jnp.asarray(c), jnp.asarray(x), r, 32,
+                               interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+
+
+def test_ball_query_strict_radius_on_the_lattice():
+    """At r = 1.0 the face neighbours of a lattice point lie at d2 = r2
+    exactly: only the point itself and its duplicates are in."""
+    x = torch.from_numpy(_bq_cloud("lattice", 256))
+    got = ball_query_warps(x[:, :8], x, 1.0, 8)
+    assert ((x[:, got[0, 0].long()] == x[:, :1]).all())
+    assert torch.equal(got[0, 0], torch.tensor([0, 64, 128, 192, 0, 0, 0, 0],
+                                               dtype=torch.int32))
+
+
+# ---------------------------------------------------------- scatter-sum
+
+def scatter_sum_csr(ids, s, tile):
+    """count, scan and place of csrc/scatter_sum.cu in PyTorch -> (order,
+    lo). count: a warp a tile of one batch element, 32 ids a step in index
+    order; the lanes of one id form a group, its highest lane takes the
+    group's next counts and a lane's rank adds the lanes of its group below
+    it. tiles: each segment's counts scanned over the tiles, and its
+    total. scan: the totals scanned over the segments. place: a row goes to
+    the start of its id's run, plus the rows of that id in earlier tiles,
+    plus its rank."""
+    b, n = ids.shape
+    tiles = k_ss.tiles(n, tile)
+    counts = torch.zeros(b, tiles, s, dtype=torch.int64)
+    rank = torch.full((b, n), -1, dtype=torch.int64)
+    for bi in range(b):
+        for t in range(tiles):
+            hi = min(n, (t + 1) * tile)
+            for i0 in range(t * tile, hi, 32):
+                i = i0 + LANES
+                idv = torch.where(i < hi, ids[bi, i.clamp(max=n - 1)], -1)
+                idv = torch.where((idv >= 0) & (idv < s), idv, -1).long()
+                peers = idv[:, None] == idv[None, :]       # __match_any_sync
+                leader = (peers * LANES).amax(1)
+                lead = (idv >= 0) & (leader == LANES)
+                first = torch.where(lead, counts[bi, t, idv.clamp(min=0)], 0)
+                counts[bi, t, idv[lead]] += peers.sum(1)[lead]
+                below = (peers & (LANES[None] < LANES[:, None])).sum(1)
+                valid = idv >= 0
+                rank[bi, i[valid]] = (first[leader] + below)[valid]
+    before = counts.cumsum(1) - counts                        # tiles
+    lo = torch.zeros(b, s + 1, dtype=torch.int64)             # scan
+    lo[:, 1:] = counts.sum(1).cumsum(1)
+    order = torch.full((b, n), -1, dtype=torch.int64)         # place
+    valid = (ids >= 0) & (ids < s)
+    bi, i = valid.nonzero(as_tuple=True)
+    idv = ids[bi, i].long()
+    order[bi, lo[bi, idv] + before[bi, i // tile, idv] + rank[bi, i]] = i
+    return order, lo
+
+
+def run_sums(features, order, lo):
+    """The sum over runs of csrc/runs.cuh: each segment's rows in the run's
+    order, in float32, from zero."""
+    b, s = lo.shape[0], lo.shape[1] - 1
+    bidx = torch.arange(b)[:, None].expand(b, s)
+    start, stop = lo[:, :-1], lo[:, 1:]
+    acc = torch.zeros(b, s, features.shape[-1])
+    for step in range(int((stop - start).max().clamp(min=0))):
+        p = start + step
+        live = p < stop
+        rows = features[bidx, order[bidx, p.clamp(max=order.shape[1] - 1)]
+                        .clamp(min=0)].float()
+        acc = torch.where(live[..., None], acc + rows, acc)
+    return acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,s,tile", [(200, 16, 64), (300, 40, 256),
+                                      (96, 8, 32), (500, 700, None)],
+                         ids=lambda v: str(v))
+def test_scatter_sum_csr(n, s, tile, dtype):
+    rng = np.random.default_rng(n)
+    ids = torch.from_numpy(rng.integers(-2, s + 2, (2, n)).astype(np.int32))
+    ids[0, : n // 2] = 3                      # a crowded segment
+    ids[1, 5], ids[1, 7] = -1, s              # out of range
+    tile = tile or k_ss.tile(n, s)
+    order, lo = scatter_sum_csr(ids, s, tile)
+    valid = (ids >= 0) & (ids < s)
+    keys = torch.where(valid, ids, s).long()
+    want = torch.sort(keys, dim=1, stable=True).indices
+    kept = valid.sum(1)
+    for bi in range(2):
+        k = int(kept[bi])
+        assert torch.equal(order[bi, :k], want[bi, :k])
+        assert (order[bi, k:] == -1).all()     # dropped rows get no slot
+        assert torch.equal(lo[bi, 1:] - lo[bi, :-1],
+                           torch.bincount(ids[bi][valid[bi]].long(),
+                                          minlength=s))
+    f = torch.from_numpy(rng.standard_normal((2, n, 24))
+                         .astype(np.float32)).to(dtype)
+    assert torch.equal(run_sums(f, order, lo),
+                       k_ss.scatter_sum_plain(f, ids, s))
+
+
+@pytest.mark.parametrize("n,s,t", [(12288, 1024, 256), (3072, 256, 256),
+                                   (5000, 40000, 2048), (64, 10 ** 6, 256),
+                                   (0, 8, 256)])
+def test_scatter_sum_tile(n, s, t):
+    """The counter table stays within 4 (N + S) entries a batch element
+    (or a tile covers all N)."""
+    assert k_ss.tile(n, s) == t and t % 32 == 0
+    assert (k_ss.tiles(n, t) * s <= 4 * (n + s)) or t >= n

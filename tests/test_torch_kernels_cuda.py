@@ -13,7 +13,12 @@ three-neighbour blend 4e-3 (one bfloat16 ulp: its float32 sums are the
 plain version's bit for bit, an FMA of an exact product rounds the same);
 the unsorted segment sum 1e-5 against the card's `index_add_` (atomics, an
 order that changes from run to run) and bit for bit against the CPU's
-(index order, the kernel's own); gradients 1e-4 (float32) against the plain
+(index order, the kernel's own), also with every row on one id, with ids
+-1 and S (dropped), with S 40,000 and with N no multiple of the CSR's tile;
+the blend's gradient through it at the two FP stages that take it, 1e-2
+(bf16) against the plain blend under autograd; ball query at every SA level
+on random, lattice and duplicate clouds, at N < U and on the lattice at
+r = 1.0 (d2 = r2 exactly is out); gradients 1e-4 (float32) against the plain
 versions under PyTorch's autograd. bfloat16 attention (C a multiple of 8)
 and every bfloat16 conv run on the tensor cores, float32 on the CUDA cores:
 both are held here, at ragged and narrow shapes too, and the counters say
@@ -129,8 +134,11 @@ def test_launch_counters(dev):
 
 @pytest.mark.parametrize("n,s,c,dtype", [
     (3072, 256, 256, torch.float32), (1500, 100, 40, torch.float32),
-    (5000, 64, 300, torch.float32), (3072, 256, 256, torch.bfloat16)],
-    ids=["path", "ragged", "wide-two-passes", "bf16-rows"])
+    (5000, 64, 300, torch.float32), (3072, 256, 256, torch.bfloat16),
+    (12288, 1024, 128, torch.float32), (12288, 1024, 128, torch.bfloat16),
+    (5000, 40000, 40, torch.float32), (1000, 16, 8, torch.bfloat16)],
+    ids=["path", "ragged", "wide-two-passes", "bf16-rows", "main",
+         "main-bf16", "S40000", "tile-ragged"])
 def test_scatter_sum(dev, n, s, c, dtype):
     f = _cloud(dev, 2, n, c, seed=9).to(dtype)
     ids = torch.randint(0, s, (2, n), generator=torch.Generator()
@@ -143,6 +151,27 @@ def test_scatter_sum(dev, n, s, c, dtype):
     assert _rel(out, k_ss.scatter_sum_plain(f, ids, s)) < 1e-5
     assert torch.equal(out.cpu(),
                        k_ss.scatter_sum_plain(f.cpu(), ids.cpu(), s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["one-id", "out-of-range"])
+def test_scatter_sum_extremes(dev, layout, dtype):
+    """Every row on one id (a run of all N rows), or ids -1 and S in both
+    batch elements (dropped); N 12,288, no multiple of the tile when one
+    row is cut: the CPU's `index_add_` bit for bit."""
+    for n in (12288, 12287):
+        f = _cloud(dev, 2, n, 128, seed=11).to(dtype)
+        if layout == "one-id":
+            ids = torch.full((2, n), 9, dtype=torch.int32, device=dev)
+        else:
+            ids = torch.randint(0, 1024, (2, n), generator=torch.Generator()
+                                .manual_seed(12)).to(dev, torch.int32)
+            ids[:, ::5] = -1
+            ids[:, 2::9] = 1024
+        out = k_ss.scatter_sum(f, ids, 1024)
+        assert torch.equal(out.cpu(),
+                           k_ss.scatter_sum_plain(f.cpu(), ids.cpu(), 1024))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -296,6 +325,53 @@ def _tie_cloud(dev, kind, n, b=4):
     return torch.cat([half, half.flip(1)], 1)[:, perm.to(dev)].contiguous()
 
 
+@pytest.mark.parametrize("kind", ["random", "lattice", "duplicates"])
+@pytest.mark.parametrize("n,m,r", [(4096, 1024, 0.1), (1024, 256, 0.2),
+                                   (256, 64, 0.4), (64, 16, 0.8),
+                                   (2048, 1024, 0.1)], ids=lambda v: str(v))
+def test_ball_query_at_every_level(dev, kind, n, m, r):
+    """The SA levels of PC2 and the first of PVD at twice the width, U 32,
+    centres by FPS, on random and tie-heavy clouds."""
+    x = (_cloud(dev, 4, n, 3, seed=n) * 0.3 if kind == "random"
+         else _tie_cloud(dev, kind, n))
+    c = ops.gather(x, k_fps.furthest_point_sample(x, m)).contiguous()
+    assert torch.equal(k_bq.ball_query(c, x, r, 32),
+                       k_bq.ball_query_plain(c, x, r, 32))
+
+
+@pytest.mark.parametrize("n", [4, 20, 31, 33])
+def test_ball_query_fewer_points_than_slots(dev, n):
+    """N < U (and just above a warp): hits, then the first hit repeated;
+    a centre with no hit gets 0; the lattice at r = 1.0 keeps the face
+    neighbours (d2 = r2) out."""
+    x = _cloud(dev, 2, n, 3, seed=n) * 0.3
+    c = torch.cat([x[:, :3], torch.full((2, 1, 3), 50.0, device=dev)],
+                  1).contiguous()
+    got = k_bq.ball_query(c, x, 0.4, 32)
+    assert torch.equal(got, k_bq.ball_query_plain(c, x, 0.4, 32))
+    assert not got[:, -1].any()
+    lat = _tie_cloud(dev, "lattice", 256)
+    assert torch.equal(k_bq.ball_query(lat[:, :n].contiguous(), lat, 1.0, 32),
+                       k_bq.ball_query_plain(lat[:, :n], lat, 1.0, 32))
+
+
+@pytest.mark.parametrize("n,m,c", [(1024, 256, 256), (4096, 1024, 128)])
+def test_interp_mm_gradient_at_path_shapes(dev, n, m, c):
+    """The blend's backward through the scatter-sum kernel at the two FP
+    stages that take it, against the plain blend under autograd."""
+    x = _cloud(dev, 8, n, 3, seed=13)
+    idx, w = k_tnn.three_nn(x, _cloud(dev, 8, m, 3, seed=14))
+    f = _cloud(dev, 8, m, c, seed=15).to(torch.bfloat16).requires_grad_()
+    cot = _cloud(dev, 8, n, c, seed=16)
+    kernels.reset_counts()
+    (k_interp.interp_mm(idx, w, f).float() * cot).sum().backward()
+    got = f.grad.clone()
+    assert kernels.counts()["scatter_sum"] == (1, 0)
+    f.grad = None
+    (k_interp.interp_mm_plain(idx, w, f).float() * cot).sum().backward()
+    assert got.dtype == torch.bfloat16 and _rel(got, f.grad) < 1e-2
+
+
 @pytest.mark.parametrize("kind", ["lattice", "duplicates"])
 @pytest.mark.parametrize("n,m", LEVELS, ids=lambda v: str(v))
 def test_fps_ties_at_every_level(dev, kind, n, m):
@@ -360,6 +436,9 @@ def test_scatter_mean_refuses_misaligned_features(dev):
     with pytest.raises(ValueError):
         k_vox.scatter_mean(f, ctx.order, ctx.ids_sorted, ctx.voxel_lo, 8,
                            torch.bfloat16, ids=ctx.ids)
+    # the scatter-sum reads its rows in the same vectors
+    with pytest.raises(ValueError):
+        k_ss.scatter_sum(f, ctx.ids, 8)
 
 
 @pytest.mark.parametrize("s,c", chip_smoke.ATTNS, ids=lambda v: str(v))

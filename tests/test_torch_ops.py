@@ -133,6 +133,25 @@ def test_ball_query_radius_boundary():
     np.testing.assert_array_equal(got[0, 1], [0, 0, 0, 0])
 
 
+@pytest.mark.parametrize("n", [4, 20])
+def test_ball_query_fewer_points_than_slots(n):
+    """N < U: the hits in scan order, then the first hit repeated; a centre
+    with no hit gets 0 in every slot, as the Pallas kernel gives them."""
+    x = _cloud(2, 2, n) * 0.3
+    far = np.full((2, 1, 3), 50.0, np.float32)        # no neighbour at all
+    c = np.concatenate([x[:, :3], far], 1)
+    got = ops.ball_query(_t(c), _t(x), 0.4, 32).numpy()
+    pallas = np.asarray(ball_query_pallas(jnp.asarray(c), jnp.asarray(x),
+                                          0.4, 32, interpret=True))
+    assert got.shape == (2, 4, 32)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got[:, -1], 0)
+    if n == 4:
+        np.testing.assert_array_equal(
+            k_bq.ball_query_plain(_t(x[:1, :1] * 0), _t(x[:1] * 0), 0.1,
+                                  8)[0, 0], [0, 1, 2, 3, 0, 0, 0, 0])
+
+
 # ------------------------------------------------------------ three-NN
 
 @pytest.mark.parametrize("case", ["random", "ties"])
@@ -367,6 +386,26 @@ def test_scatter_sum_unsorted(c, segs):
     bf = k_ss.scatter_sum(_t(f).to(torch.bfloat16), _t(ids), segs)
     _close(bf.numpy(), k_ss.scatter_sum(
         _t(f).to(torch.bfloat16).float(), _t(ids), segs).numpy(), 1e-6)
+
+
+def test_scatter_sum_drops_out_of_range_ids():
+    """ids -1 and S in both batch elements add to no segment, as the
+    Pallas kernel's one-hot mask drops them (integer features: the sums
+    are exact in any order and in bfloat16)."""
+    ones = torch.ones(2, 4, 1)
+    ids = torch.tensor([[0, 1, 2, 2], [0, 0, 1, -1]], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        k_ss.scatter_sum(ones, ids, 2)[..., 0].numpy(), [[1, 1], [2, 1]])
+    rng = np.random.default_rng(3)
+    b, n, c, segs = 2, 64, 8, 16
+    f = rng.integers(-4, 5, (b, n, c)).astype(np.float32)
+    ids = rng.integers(0, segs, (b, n)).astype(np.int32)
+    ids[:, 5], ids[:, 9] = -1, segs
+    ids[0, 20:24], ids[1, 30:33] = segs, -1
+    got = k_ss.scatter_sum(_t(f), _t(ids), segs).numpy()
+    pallas = scatter_sum_pallas(jnp.asarray(f), jnp.asarray(ids), segs,
+                                interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
 
 
 def _conv_case(seed, r, cin, cout, b=2):
