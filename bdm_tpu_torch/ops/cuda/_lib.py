@@ -47,6 +47,8 @@ _SIGNATURES = {
     "bdm_conv3d_n_tile": (_I,),
     "bdm_fps_threads": (_I,),
     "bdm_fps_points": (_I,),
+    "bdm_three_nn_lanes": (_I, _I, _I),
+    "bdm_three_nn_step": (_I,),
     "bdm_scatter_mean_vec": (_I, _I, _I),
     "bdm_scatter_mean_lanes": (_I, _I, _I),
 }

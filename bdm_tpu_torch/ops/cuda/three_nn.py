@@ -1,7 +1,15 @@
 """Three nearest neighbours: the `csrc/three_nn.cu` kernel and its plain
 version.
 
-Replaces `three_nn_pallas` (bdm_tpu/ops/pallas/three_nn.py).
+Replaces `three_nn_pallas` (bdm_tpu/ops/pallas/three_nn.py). A CPU tensor
+goes to the plain version; a CUDA tensor launches the kernel. M >= 1: with
+fewer than three centres the last one found repeats, as the JAX reference
+gives it.
+
+The kernel splits the centres of a query over `lanes(b, n, m)` lanes of a
+warp (the source's `bdm_three_nn_lanes`); lane s scans the steps s, s + L,
+... of `step(m)` consecutive centres (`bdm_three_nn_step`), centres staged
+in shared memory `TILE` at a time.
 """
 
 from __future__ import annotations
@@ -13,6 +21,25 @@ from bdm_tpu_torch.ops.cuda.fps import sqdist
 
 launches = 0
 plain_cuda_calls = 0
+TILE = 2048          # centres staged a pass, `kTile` of the source
+STEP_FROM = 256      # M from which a step holds 4 centres, `kStepFrom`
+MIN_THREADS = 2 ** 15   # the threads `lanes` aims for
+
+
+def step(m: int) -> int:
+    """Centres a lane scans a step: 4 from STEP_FROM centres on, else 1
+    (then the steps are the centres and the second phase is not needed)."""
+    return 4 if m >= STEP_FROM else 1
+
+
+def lanes(b: int, n: int, m: int) -> int:
+    """Lanes that share a query's centres: the least power of two from 1 to
+    32 that gives B * N * L at least MIN_THREADS threads, and no more than
+    one step of centres a lane."""
+    u, lanes_ = step(m), 1
+    while lanes_ < 32 and b * n * lanes_ < MIN_THREADS and lanes_ * u < m:
+        lanes_ *= 2
+    return lanes_
 
 
 def idw_weights(best: torch.Tensor) -> torch.Tensor:
@@ -56,9 +83,9 @@ def three_nn(points: torch.Tensor, centers: torch.Tensor):
     _lib.check(centers, "centers", (torch.float32,), 3)
     b, n, _ = points.shape
     m = centers.shape[1]
-    if points.shape[-1] != 3 or centers.shape[::2] != (b, 3) or m < 3:
+    if points.shape[-1] != 3 or centers.shape[::2] != (b, 3) or m < 1:
         raise ValueError(f"three_nn: points {tuple(points.shape)}, "
-                         f"centers {tuple(centers.shape)} (needs M >= 3)")
+                         f"centers {tuple(centers.shape)} (needs M >= 1)")
     idx = torch.empty((b, n, 3), dtype=torch.int32, device=points.device)
     w = torch.empty((b, n, 3), dtype=torch.float32, device=points.device)
     _lib.launch("bdm_three_nn", points.data_ptr(), centers.data_ptr(),

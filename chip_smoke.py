@@ -23,13 +23,18 @@ Phases, in the order they run (any failure exits non-zero):
      without the distance work (the floor of its design); ball query on
      those clouds at every level, on the lattice at r = 1.0 (a face
      neighbour at d2 = r2 exactly is out) and at N < U, timed at the five
-     shapes of the paths; scatter-sum equal to the CPU's `index_add_` bit
-     for bit (float32 and bf16 rows, ids -1 and S dropped, every row on one
-     id) at the two shapes of the blend's backward, beside `index_add_`'s
-     time at both; scatter-mean with its vector and lanes rule against the
-     source's and float32 bit for bit against the CPU; beside the times of
-     fps, ball query, scatter-sum and scatter-mean, those of the kernels
-     they replaced (`BEFORE_MS`); the float32 attention at C 64 and 128
+     shapes of the paths; three-NN on those clouds at every level (the
+     lattice also against its cell centres), with fewer centres than three
+     and than a query's lanes, the source's lanes and step rule against the
+     wrapper's, timed at the five shapes of the paths beside the issue
+     floor of a distance without FMAs; scatter-sum equal to the CPU's
+     `index_add_` bit for bit (float32 and bf16 rows, ids -1 and S
+     dropped, every row on one id) at the two shapes of the blend's
+     backward, beside `index_add_`'s time at both; scatter-mean with its
+     vector and lanes rule against the source's and float32 bit for bit
+     against the CPU; beside the times of fps, ball query, three-NN,
+     scatter-sum and scatter-mean, those of the kernels they replaced
+     (`BEFORE_MS`); the float32 attention at C 64 and 128
      against the float32 fused attention, and the float32 conv
      (no TF32 in the library call) at 64 -> 64 and 390 -> 32 and 32 -> 32
      R 32, 128 -> 128 R 9 and 512 -> 512 R 8, beside the recorded times of
@@ -101,6 +106,14 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def timed_ms(fn, reps: int = 5, warmup: int = 2, inner: int = 1) -> float:
     """Median device time of one fn() over `reps` runs (CUDA events).
 
@@ -170,13 +183,15 @@ FPS_LARGE = [(16384, 4096), (20000, 5000), (40000, 10000)]
 # Times of the kernels that the present ones replaced: ms at B=8 on an
 # NVIDIA H100 80GB HBM3 at 700.00 W, with how they were timed: one launch
 # between CUDA events or launches back to back behind a matmul (PERF.md
-# section 6 keeps them in rows 1, 2, 6, 7 and 8)
+# section 6 keeps them in rows 1, 2, 3, 6, 7 and 8; three-NN's from
+# `tools/compare_three_nn.py` against the parent tree)
 BEFORE_MS = {
     "fps N4096 M1024": (1.0275, "one launch"),
     "scatter_mean bf16 C390 R32": (0.4598, "one launch"),
     "scatter_mean f32 C64 R32 mean": (0.1144, "one launch"),
     "scatter_mean f32 C64 R32 sum": (0.1093, "one launch"),
     "ball_query N4096 M1024 r0.1": (0.3366, "one launch"),
+    "three_nn N4096 M1024": (0.0583, "back to back"),
     "scatter_sum N12288 S1024 C128": (0.1113, "back to back"),
     "scatter_sum N3072 S256 C256": (0.0240, "back to back")}
 
@@ -388,23 +403,58 @@ def check_kernels(dev):
         library_ms=None,
         **bound([c0, p0, a.new_empty((b, 1024, 32))], scanned * 9, "f32"))
 
+    def hold_three_nn(x, c, what):
+        i, w = three_nn.three_nn(x, c)
+        pi, pw = three_nn.three_nn_plain(x, c)
+        if not torch.equal(i, pi):
+            fail(f"three_nn indices differ {what}")
+        return i, w, rel_err(w, pw, 1e-6, f"three_nn weights {what}")
+
     err = 0.0
     nn = {}
     for n, m, _ in levels:
-        i, w = three_nn.three_nn(pts[n], pts[m])
-        pi, pw = three_nn.three_nn_plain(pts[n], pts[m])
-        if not torch.equal(i, pi):
-            fail(f"three_nn indices differ at N={n}, M={m}")
-        err = max(err, rel_err(w, pw, 1e-6, f"three_nn weights N={n}"))
+        i, w, e = hold_three_nn(pts[n], pts[m], f"at N={n}, M={m}")
+        err = max(err, e)
         nn[n] = (i, w)
+        # the tie clouds of the FPS loop against their FPS centres, and the
+        # lattice's cell centres (eight corners at one distance)
+        for kind, x in ties[n, m].items():
+            c = ops.gather(x, fps.furthest_point_sample(x, m)).contiguous()
+            err = max(err, hold_three_nn(x, c, f"on the {kind} cloud at "
+                                         f"N={n}")[2])
+            if kind == "lattice":
+                err = max(err, hold_three_nn(
+                    x + 0.5, c, f"at the lattice's cell centres, N={n}")[2])
+        if (lib.bdm_three_nn_lanes(b, n, m), lib.bdm_three_nn_step(m)) != (
+                three_nn.lanes(b, n, m), three_nn.step(m)):
+            fail(f"three_nn: the source's split for N={n}, M={m} is not "
+                 f"`lanes`, `step`")
+    # fewer centres than three; at N 64 also fewer than a query's lanes
+    # (M 3, 5, 17 give L 4, 8, 32: whole lanes hold only sentinels)
+    for n in (4096, 64):
+        for m in (1, 2, 3, 5, 17):
+            err = max(err, hold_three_nn(pts[n], pts[16][:, :m].contiguous(),
+                                         f"at N={n}, M={m}")[2])
+    if not all(m < three_nn.lanes(b, 64, m) for m in (3, 5, 17)):
+        fail("three_nn: no case with fewer centres than lanes")
+    # back to back at every shape of the paths: the four FP levels and the
+    # first level of PVD at twice the width
+    by_shape = {f"N{n}_M{m}": timed_ms(
+        lambda: three_nn.three_nn(pts[n], pts[m]), inner=10)
+        for n, m, _ in levels}
+    by_shape["N2048_M1024"] = timed_ms(
+        lambda: three_nn.three_nn(pts[2048], half), inner=10)
+    pairs = b * 4096 * 1024
     res["three_nn"] = dict(
         max_abs_err=err,
-        ms=timed_ms(lambda: three_nn.three_nn(p0, c0)),
+        ms=by_shape["N4096_M1024"], ms_by_shape=by_shape,
+        ms_one_launch=timed_ms(lambda: three_nn.three_nn(p0, c0)),
+        timing="10 launches back to back behind a matmul",
         plain_ms=timed_ms(lambda: three_nn.three_nn_plain(p0, c0)),
         library_ms=None,
         # a distance and one compare against the third-best a pair (an
         # insertion is rare)
-        **bound([p0, c0, *nn[4096]], b * 4096 * 1024 * 9, "f32"))
+        **bound([p0, c0, *nn[4096]], pairs * 9, "f32"))
 
     # the bf16 blend at the two FP stages that take it: (N, M, C); one
     # bf16 ulp (2^-8) of the largest output
@@ -729,7 +779,7 @@ def check_kernels(dev):
         for key, val in res[name].items():
             if isinstance(val, dict):
                 print(f"{name} {key}:", json.dumps(val))
-    for name in ("interp_mm", "scatter_sum", "ball_query"):
+    for name in ("interp_mm", "scatter_sum", "ball_query", "three_nn"):
         print(f"{name} by shape, ms:", json.dumps(res[name]["ms_by_shape"]))
     # the new bfloat16 times beside the recorded ones of the CUDA-core kernels
     now = {"attention": {(4096, 64): res["attention"]["ms"],
@@ -757,7 +807,14 @@ def check_kernels(dev):
                   f"{before / r['ms_one_launch']:.2f}x; one PyTorch call "
                   f"{r['library_ms']:.4f} ms back to back; bound "
                   f"{r['bound_ms']:.5f} ms)")
-    fr, sm = res["fps"], res["scatter_mean"]
+    fr, sm, tn = res["fps"], res["scatter_mean"], res["three_nn"]
+    # 9 instructions a pair, one a lane and clock on 132 SMs of 128 lanes,
+    # at the card's highest SM clock: the floor of a distance without FMAs
+    floor = 8 * 4096 * 1024 * 9 / (132 * 128 * sm_clock_mhz() * 1e6) * 1e3
+    print(f"three_nn N=4096 M=1024: {tn['ms']:.4f} ms back to back; issue "
+          f"floor without FMAs {floor:.5f} ms ({floor / tn['ms']:.1%}), "
+          f"operations bound {tn['bound_ms']:.5f} ms "
+          f"({tn['bound_ms'] / tn['ms']:.1%})")
     print(f"fps round floor N=4096 M=1024: {fr['round_floor_ms']:.4f} ms "
           f"(operations bound {fr['bound_ms']:.5f} ms, kernel "
           f"{fr['ms']:.4f} ms)")
@@ -770,6 +827,7 @@ def check_kernels(dev):
         "scatter_mean f32 C64 R32 mean": sm["f32_c64_r32_mean"],
         "scatter_mean f32 C64 R32 sum": sm["f32_c64_r32_sum"],
         "ball_query N4096 M1024 r0.1": res["ball_query"],
+        "three_nn N4096 M1024": res["three_nn"],
         "scatter_sum N12288 S1024 C128": ss["N12288_S1024_C128"],
         "scatter_sum N3072 S256 C256": ss["N3072_S256_C256"]}
     for key, (before, how) in BEFORE_MS.items():

@@ -51,9 +51,21 @@ surrounds the CUDA code and can be said in PyTorch.
     and over segments, each row placed at its slot; `order` and `lo` equal
     a stable sort and a bincount, and the sums over the runs equal the
     plain version bit for bit, with ids out of range, a crowded segment and
-    N no multiple of the tile.
+    N no multiple of the tile;
+  * the lane split of the three-NN kernel (`csrc/three_nn.cu`): a query's
+    centres over L lanes in steps of U, each lane's three least steps by
+    strict < with selects, the centres of those steps recomputed and their
+    triples merged on (d, index), sentinels (+inf, INT_MAX) in lanes with
+    fewer than three centres, xor-shuffle merges of sorted triples
+    (min(a_k, b_(2-k)), then two compare-exchanges), several staged tiles,
+    M < 3 repeating the last centre; indices exact against the plain
+    version and the Pallas kernel in interpret mode on random clouds, the
+    lattice against its cell centres, centres in duplicate pairs (a higher
+    lane may hold the lower index), M no multiple of L U and M < L; and the
+    split rule at the five FP levels of the paths.
 """
 
+import functools
 import importlib.util
 import math
 from pathlib import Path
@@ -68,13 +80,14 @@ from bdm_tpu.ops.pallas.attention import attention_pallas
 from bdm_tpu.ops.pallas.ball_query import ball_query_pallas
 from bdm_tpu.ops.pallas.conv3d import conv3d_pallas
 from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
+from bdm_tpu.ops.pallas.three_nn import three_nn_pallas
 from bdm_tpu.ops.sampling import furthest_point_sample as jax_fps
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.pvcnn import VoxConv
 from bdm_tpu_torch.ops.cuda import (attention as k_attn,
                                     ball_query as k_bq, conv3d as k_conv,
                                     fps as k_fps, scatter_sum as k_ss,
-                                    voxelize as k_vox)
+                                    three_nn as k_tnn, voxelize as k_vox)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -810,3 +823,211 @@ def test_scatter_sum_tile(n, s, t):
     (or a tile covers all N)."""
     assert k_ss.tile(n, s) == t and t % 32 == 0
     assert (k_ss.tiles(n, t) * s <= 4 * (n + s)) or t >= n
+
+
+# ------------------------------------------------------------- three-NN
+
+NONE = 2 ** 31 - 1       # INT_MAX: a sentinel's index, after every centre
+NO_STEP = 2 ** 32 - 1    # UINT_MAX: no step yet
+
+
+def _insert(v, s, x, j, take):
+    """`insert` of csrc/three_nn.cu: strict < insertion of (x, j) into the
+    sorted triples (v, s) where `take`, with selects."""
+    p0, p1, p2 = (take & (x < v[..., k]) for k in range(3))
+    v0, v1, v2 = v.unbind(-1)
+    s0, s1, s2 = s.unbind(-1)
+    return (torch.stack([torch.where(p0, x, v0),
+                         torch.where(p0, v0, torch.where(p1, x, v1)),
+                         torch.where(p1, v1, torch.where(p2, x, v2))], -1),
+            torch.stack([torch.where(p0, j, s0),
+                         torch.where(p0, s0, torch.where(p1, j, s1)),
+                         torch.where(p1, s1, torch.where(p2, j, s2))], -1))
+
+
+def _before(da, ia, db, ib):
+    return (da < db) | ((da == db) & (ia < ib))
+
+
+def _merge(d, i, e, f):
+    """`merge`: the three least of two sorted, disjoint triples on
+    (d, index). min(a_k, b_(2-k)) is a bitonic triple; the compare-exchanges
+    (0, 2) and (1, 2) sort it."""
+    e, f = e.flip(-1), f.flip(-1)
+    o = _before(e, f, d, i)
+    d, i = torch.where(o, e, d), torch.where(o, f, i)
+    for a, b in ((0, 2), (1, 2)):
+        sw = _before(d[..., b], i[..., b], d[..., a], i[..., a])
+        da, ia, db, ib = d[..., a], i[..., a], d[..., b], i[..., b]
+        d, i = d.clone(), i.clone()
+        d[..., a], i[..., a] = torch.where(sw, db, da), torch.where(sw, ib, ia)
+        d[..., b], i[..., b] = torch.where(sw, da, db), torch.where(sw, ia, ib)
+    return d, i
+
+
+def three_nn_lanes(points, centers, lanes=None, step=None, tile=None):
+    """`three_nn_kernel` of csrc/three_nn.cu in PyTorch. The centres of a
+    query are split over L lanes; lane s scans the steps s, s + L, ... of U
+    consecutive centres, staged a tile at a time and padded to whole steps
+    for every lane with centres at +inf. Phase 1: each step's least
+    distance into the lane's three least steps (strict <). Phase 2 (U > 1):
+    the centres of those steps, each step's best three by strict <, the
+    three triples merged on (d, index); with U = 1 the steps are the
+    centres. Then log2 L xor-shuffle rounds merge the lanes' triples; a lane
+    with fewer than three centres holds (+inf, INT_MAX). M < 3 repeats the
+    last centre found."""
+    b, n, _ = points.shape
+    m = centers.shape[1]
+    lanes = lanes or k_tnn.lanes(b, n, m)
+    step = step or k_tnn.step(m)
+    tile = tile or k_tnn.TILE
+    sub = torch.arange(lanes)
+    rows = torch.arange(b)[:, None, None]
+    pts = points[:, :, None, :]                           # (B, N, 1, 3)
+    shape = (b, n, lanes, 3)
+    t_d = torch.full(shape, math.inf)
+    t_i = torch.full(shape, NONE, dtype=torch.int64)
+    for t0 in range(0, m, tile):
+        lim = min(tile, m - t0)
+        steps = -(-lim // (lanes * step)) * lanes
+        staged = torch.full((b, steps * step, 3), math.inf)
+        staged[:, :lim] = centers[:, t0:t0 + lim]
+        v = torch.full(shape, math.inf)
+        s = torch.full(shape, NO_STEP, dtype=torch.int64)
+        for k in range(steps // lanes):
+            st = sub + k * lanes                          # each lane's step
+            x = torch.stack([k_fps.sqdist(pts, staged[:, None, st * step + u])
+                             for u in range(step)]).amin(0)   # (B, N, L)
+            v, s = _insert(v, s, x, st.expand_as(x),
+                           torch.ones_like(x, dtype=torch.bool))
+        if step == 1:
+            t_d, t_i = _merge(t_d, t_i, v, torch.where(s == NO_STEP, NONE,
+                                                       t0 + s))
+            continue
+        best = []
+        for r in range(3):
+            live = s[..., r] != NO_STEP
+            first = torch.where(live, s[..., r] * step, 0)
+            d = torch.full(shape, math.inf)
+            i = torch.full(shape, NONE, dtype=torch.int64)
+            for u in range(step):
+                c = staged[rows, first + u]               # (B, N, L, 3)
+                d, i = _insert(d, i, k_fps.sqdist(pts, c), t0 + first + u,
+                               live & (first + u < lim))
+            best.append((d, i))
+        d, i = _merge(*best[0], *best[1])
+        d, i = _merge(d, i, *best[2])
+        t_d, t_i = _merge(t_d, t_i, d, i)
+    off = 1
+    while off < lanes:
+        partner = sub ^ off
+        t_d, t_i = _merge(t_d, t_i, t_d[..., partner, :], t_i[..., partner, :])
+        off *= 2
+    assert (t_d == t_d[..., :1, :]).all() and (t_i == t_i[..., :1, :]).all()
+    d, i = t_d[..., 0, :], t_i[..., 0, :]
+    if m < 3:
+        d = torch.cat([d[..., :m]] + [d[..., m - 1:m]] * (3 - m), -1)
+        i = torch.cat([i[..., :m]] + [i[..., m - 1:m]] * (3 - m), -1)
+    assert (i < m).all()
+    return i.to(torch.int32), k_tnn.idw_weights(d)
+
+
+_TNN_CLOUDS = [("random", 256, 64), ("lattice", 128, 64),
+               ("duplicates", 128, 40), ("random", 64, 20),
+               ("lattice", 64, 7), ("duplicates", 64, 5), ("random", 64, 3)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tnn_case(kind, n, m):
+    """Points, centres and the Pallas kernel's answer in interpret mode:
+    random; the integer lattice against the centres of its cells (eight
+    corners at one distance, many exact ties); centres in duplicate pairs in
+    shuffled order (a higher lane may hold the lower index of a pair)."""
+    rng = np.random.default_rng(n + 7 * m)
+    if kind == "random":
+        x = rng.standard_normal((2, n, 3)).astype(np.float32)
+        c = rng.standard_normal((2, m, 3)).astype(np.float32)
+    elif kind == "lattice":
+        x = _fps_cloud("lattice", n) + np.float32(0.5)
+        c = _fps_cloud("lattice", m)
+    else:
+        x = rng.standard_normal((2, n, 3)).astype(np.float32)
+        c = _fps_cloud("duplicates", m)
+    idx, w = three_nn_pallas(jnp.asarray(x), jnp.asarray(c), True)
+    return (torch.from_numpy(x), torch.from_numpy(c), np.asarray(idx),
+            torch.from_numpy(np.array(w)))
+
+
+@pytest.mark.parametrize("kind,n,m", _TNN_CLOUDS, ids=lambda v: str(v))
+@pytest.mark.parametrize("lanes", [None, 1, 2, 8, 32],
+                         ids=["rule", "L1", "L2", "L8", "L32"])
+@pytest.mark.parametrize("step", [None, 1, 4], ids=["rule", "U1", "U4"])
+def test_three_nn_lane_merge(kind, n, m, lanes, step):
+    """Exact against the plain version and the Pallas kernel in interpret
+    mode; M no multiple of L U, and M < L (lanes with no centre)."""
+    x, c, pallas_idx, pallas_w = _tnn_case(kind, n, m)
+    idx, w = three_nn_lanes(x, c, lanes, step)
+    pi, pw = k_tnn.three_nn_plain(x, c)
+    assert torch.equal(idx, pi)
+    assert _rel(w, pw) <= 1e-5
+    np.testing.assert_array_equal(idx.numpy(), pallas_idx)
+    assert _rel(w, pallas_w) <= 1e-5
+
+
+@pytest.mark.parametrize("m,lanes,step", [(1, 4, 1), (2, 4, 1), (1, 32, 4),
+                                          (2, 8, 4), (2, 1, 4)],
+                         ids=lambda v: str(v))
+def test_three_nn_lane_merge_fewer_than_three_centres(m, lanes, step):
+    """M < 3: sentinels never win; the last centre found repeats."""
+    x = torch.from_numpy(_cloud_np(64))
+    c = torch.from_numpy(_cloud_np(m))
+    idx, w = three_nn_lanes(x, c, lanes, step)
+    pi, pw = k_tnn.three_nn_plain(x, c)
+    assert torch.equal(idx, pi)
+    assert _rel(w, pw) <= 1e-5
+
+
+def _cloud_np(n):
+    return np.random.default_rng(n).standard_normal((2, n, 3)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("lanes,step,tile", [(1, 4, 8), (2, 1, 16),
+                                             (4, 4, 16), (2, 4, 24)],
+                         ids=lambda v: str(v))
+def test_three_nn_lane_merge_tiles(lanes, step, tile):
+    """Several staged tiles, the last one ragged: the running triple
+    carries across them."""
+    x, c, _, _ = _tnn_case("lattice", 128, 64)
+    c = c[:, :60].contiguous()
+    idx, w = three_nn_lanes(x, c, lanes, step, tile)
+    pi, pw = k_tnn.three_nn_plain(x, c)
+    assert torch.equal(idx, pi)
+    assert _rel(w, pw) <= 1e-5
+
+
+@pytest.mark.parametrize("lanes,step,pair", [(8, 1, (1, 8)),
+                                             (2, 4, (5, 8))],
+                         ids=["U1", "U4"])
+def test_three_nn_lowest_lane_is_not_lowest_index(lanes, step, pair):
+    """Two centres on the query, the lower index on lane 1, the higher on
+    lane 0. A first-lane pick would take the higher first; (d, index)
+    order takes the lower."""
+    x = torch.zeros(1, 1, 3)
+    c = torch.full((1, 4 * lanes * step, 3), 5.0)
+    c[0, list(pair)] = 0.0
+    c[0, 3] = 1.0
+    idx, _ = three_nn_lanes(x, c, lanes, step)
+    assert idx[0, 0].tolist() == [pair[0], pair[1], 3]
+    assert torch.equal(idx, k_tnn.three_nn_plain(x, c)[0])
+
+
+@pytest.mark.parametrize("n,m,rule", [(4096, 1024, (1, 4)),
+                                      (1024, 256, (4, 4)),
+                                      (256, 64, (16, 1)), (64, 16, (16, 1)),
+                                      (2048, 1024, (2, 4)), (64, 5, (8, 1)),
+                                      (64, 2, (2, 1))],
+                         ids=lambda v: str(v))
+def test_three_nn_rule(n, m, rule):
+    """The split at the five FP levels of the paths (B 8), and at M < L."""
+    assert (k_tnn.lanes(8, n, m), k_tnn.step(m)) == rule

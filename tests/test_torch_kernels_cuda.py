@@ -5,25 +5,27 @@ runs where JAX is not installed:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
-Tolerances: indices exact; float32 results 1e-5 of the largest value
-(the same float32 operations, summed in another order for the conv and
+Tolerances: indices exact; float32 results 1e-5 of the largest value (the
+same float32 operations, summed in another order for the conv and
 attention); bfloat16 outputs 1e-2 of the largest value (one bfloat16
 rounding of sums that differ in their last float32 bits); the bf16
-three-neighbour blend 4e-3 (one bfloat16 ulp: its float32 sums are the
-plain version's bit for bit, an FMA of an exact product rounds the same);
-the unsorted segment sum 1e-5 against the card's `index_add_` (atomics, an
-order that changes from run to run) and bit for bit against the CPU's
-(index order, the kernel's own), also with every row on one id, with ids
--1 and S (dropped), with S 40,000 and with N no multiple of the CSR's tile;
-the blend's gradient through it at the two FP stages that take it, 1e-2
-(bf16) against the plain blend under autograd; ball query at every SA level
-on random, lattice and duplicate clouds, at N < U and on the lattice at
-r = 1.0 (d2 = r2 exactly is out); gradients 1e-4 (float32) against the plain
-versions under PyTorch's autograd. bfloat16 attention (C a multiple of 8)
-and every bfloat16 conv run on the tensor cores, float32 on the CUDA cores:
-both are held here, at ragged and narrow shapes too, and the counters say
-which kernel a call took. FPS is held on tie-heavy clouds (the integer
-lattice, exact duplicates) at every PVCNN2 level and at N that is no
+three-neighbour blend 4e-3 (one bfloat16 ulp: its float32 sums are the plain
+version's bit for bit, an FMA of an exact product rounds the same); the
+unsorted segment sum 1e-5 against the card's `index_add_` (atomics, an order
+that changes from run to run) and bit for bit against the CPU's (index
+order, the kernel's own), also with every row on one id, with ids -1 and S
+(dropped), with S 40,000 and with N no multiple of the CSR's tile; the
+blend's gradient through it at the two FP stages that take it, 1e-2 (bf16)
+against the plain blend under autograd; ball query at every SA level on
+random, lattice and duplicate clouds, at N < U and on the lattice at r = 1.0
+(d2 = r2 exactly is out); three-NN indices exact and weights 1e-6 relative
+at every FP level on random, lattice and duplicate clouds and with fewer
+centres than three and than a query's lanes; gradients 1e-4 (float32)
+against the plain versions under PyTorch's autograd. bfloat16 attention (C a
+multiple of 8) and every bfloat16 conv run on the tensor cores, float32 on
+the CUDA cores: both are held here, at ragged and narrow shapes too, and the
+counters say which kernel a call took. FPS is held on tie-heavy clouds (the
+integer lattice, exact duplicates) at every PVCNN2 level and at N that is no
 multiple of the block; the scatter-mean with every point in one voxel and
 with every point in a voxel of its own, at row widths that take each vector
 width, bit for bit against the plain version on the CPU (one rounding of
@@ -513,3 +515,45 @@ def test_float32_conv3d_halo_tiles(dev, cin, cout, r):
         out = k_conv.conv3d(x, wt, bias)
         assert out.shape == (2, r, r, r, cout)
         assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-4
+
+
+def _hold_three_nn(x, c):
+    i, w = k_tnn.three_nn(x, c)
+    pi, pw = k_tnn.three_nn_plain(x, c)
+    assert torch.equal(i, pi)
+    assert _rel(w, pw) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["random", "lattice", "duplicates"])
+@pytest.mark.parametrize("n,m", LEVELS + [(2048, 1024)],
+                         ids=lambda v: str(v))
+def test_three_nn_at_every_level(dev, kind, n, m):
+    """The FP levels of PC2 and the first of PVD at twice the width (B 8),
+    centres by FPS, on random and tie-heavy clouds; the lattice also
+    against the centres of its cells (eight corners at one distance). The
+    source's split is the wrapper's rule."""
+    x = (_cloud(dev, 8, n, 3, seed=n) * 0.3 if kind == "random"
+         else _tie_cloud(dev, kind, n, b=8))
+    c = ops.gather(x, k_fps.furthest_point_sample(x, m)).contiguous()
+    _hold_three_nn(x, c)
+    if kind == "lattice":
+        _hold_three_nn(x + 0.5, c)
+    lib = _lib.library()
+    assert (lib.bdm_three_nn_lanes(8, n, m), lib.bdm_three_nn_step(m)) == (
+        k_tnn.lanes(8, n, m), k_tnn.step(m))
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 17])
+def test_three_nn_fewer_than_three_centres(dev, n, m):
+    """M 1 and 2 repeat the last centre found, as the reference does; M 3,
+    5 and 17 at N 64 leave lanes with no centre (M < L), and at N 4096 a
+    single lane a query holds sentinels in its unused slots."""
+    x = _cloud(dev, 8, n, 3, seed=m)
+    c = _cloud(dev, 8, m, 3, seed=m + 100)
+    if n == 64 and m > 2:
+        assert k_tnn.lanes(8, n, m) > m
+    _hold_three_nn(x, c)
+    if m < 3:
+        i, _ = k_tnn.three_nn(x, c)
+        assert (i[..., 2] == i[..., m - 1]).all()

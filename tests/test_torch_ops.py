@@ -171,6 +171,19 @@ def test_three_nn(case):
     _close(w.numpy(), pw, F32_RTOL)
 
 
+@pytest.mark.parametrize("m", [1, 2])
+def test_three_nn_fewer_than_three_centres(m):
+    """M < 3: the centres found, then the last one repeated, as the JAX
+    function gives them (its plain path: the Pallas kernel takes M >= 3)."""
+    pts, ctr = _cloud(7, 2, 64), _cloud(8, 2, m)
+    idx, w = ops.three_nn(_t(pts), _t(ctr))
+    jidx, jw = jops.three_nn(jnp.asarray(pts), jnp.asarray(ctr),
+                             use_pallas=False)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    _close(w.numpy(), jw, F32_RTOL)
+    assert (idx[..., 2] == idx[..., m - 1]).all()
+
+
 def test_three_nn_interpolate():
     pts, ctr = _cloud(4, 2, 128), _cloud(5, 2, 32)
     f = np.random.default_rng(6).standard_normal((2, 32, 12)).astype(
