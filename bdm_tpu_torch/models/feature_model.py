@@ -113,7 +113,8 @@ class VisionTransformer(nn.Module):
 class FeatureModel(nn.Module):
     """ImageNet-normalize -> ViT -> drop CLS -> token grid -> bilinear
     upsample to the input size (half-pixel centres, as
-    jax.image.resize). `model_name='identity'` returns the image."""
+    jax.image.resize). `model_name='identity'` returns the image, whatever
+    the return type."""
 
     def __init__(self, image_size: int = 224,
                  model_name: str = "vit_small_patch16_224_msn",
@@ -128,16 +129,21 @@ class FeatureModel(nn.Module):
         self.feature_dim = kw["embed_dim"]
         self.model = VisionTransformer(img_size=image_size, **kw)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) in [0, 1] -> (B, H, W, D) float32."""
+    def forward(self, images: torch.Tensor, return_type: str = "features"):
+        """images (B, H, W, 3) in [0, 1] -> "features": (B, H, W, D)
+        float32; "cls_token": the CLS token (B, D); "all": (CLS token,
+        features) from one ViT forward."""
         if self.model_name == "identity":
             return images
         mean = images.new_tensor(IMAGENET_MEAN)
         std = images.new_tensor(IMAGENET_STD)
         tokens = self.model((images - mean) / std)
+        if return_type == "cls_token":
+            return tokens[:, 0]
         b, t, d = tokens.shape
         g = int(round((t - 1) ** 0.5))
         grid = tokens[:, 1:].reshape(b, g, g, d).permute(0, 3, 1, 2)
         up = F.interpolate(grid, size=(self.image_size, self.image_size),
                            mode="bilinear", align_corners=False)
-        return up.permute(0, 2, 3, 1)
+        feats = up.permute(0, 2, 3, 1)
+        return (tokens[:, 0], feats) if return_type == "all" else feats

@@ -121,9 +121,23 @@ def build_pvcnn2_specs(sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
                        tuple(sa_in_channels), in_channels)
 
 
+def tap_weights(weight: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Input rows lo:hi of every tap of a (Cout, Cin, 3, 3, 3) conv weight
+    -> (hi - lo, 27 * Cout), tap-major blocks in (kd, kh, kw) order: the
+    layout `tap_shift_sum` reads and the precontraction builds."""
+    cout = weight.shape[0]
+    return weight[:, lo:hi].permute(1, 2, 3, 4, 0).reshape(-1, 27 * cout)
+
+
 class VoxConv(nn.Module):
     """3x3x3 SAME conv with the reference Conv3d's parameters
-    (weight (Cout, Cin, 3, 3, 3), bias), on channel-last grids."""
+    (weight (Cout, Cin, 3, 3, 3), bias), on channel-last grids.
+
+    `forward_pre_tap` is the precontracted form of the first conv of
+    stage 0 (`bdm_tpu/models/pvcnn.py::VoxConv`, `pre_tap`): the taps of
+    the conditioning rows were contracted per point once a trajectory
+    (`PC2Model.precontract_cond`), so a step adds the x_t rows' taps,
+    scatter-means the 27 * Cout tap values and shift-sums them."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -132,6 +146,19 @@ class VoxConv(nn.Module):
 
     def forward(self, grid: torch.Tensor) -> torch.Tensor:
         return ops.voxel_conv3d(grid, self.weight, self.bias)
+
+    def forward_pre_tap(self, pre_tap: torch.Tensor, xt: torch.Tensor,
+                        ctx: ops.VoxelContext, resolution: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+        """pre_tap (B, N, 27 * Cout), xt (B, N, 3) -> the conv of the
+        voxelized input, (B, R, R, R, Cout) in `dtype`."""
+        cout, r = self.weight.shape[0], resolution
+        dt = pre_tap.dtype
+        tap = pre_tap + xt.to(dt) @ tap_weights(self.weight, 0, 3).to(dt)
+        grid = ops.scatter_mean_contributions(tap, ctx, r)
+        out = ops.tap_shift_sum(
+            grid.reshape((tap.shape[0],) + (r,) * 3 + (27 * cout,)), cout)
+        return (out + self.bias.float()).to(dtype)
 
 
 class PVConv(nn.Module):
@@ -157,13 +184,18 @@ class PVConv(nn.Module):
             SE(cout, dtype=dtype)])
         self.point_features = SharedMLP(cin, (cout,), kdims=1, dtype=dtype)
 
-    def forward(self, features: torch.Tensor,
-                ctx: ops.VoxelContext) -> torch.Tensor:
+    def forward(self, features: torch.Tensor, ctx: ops.VoxelContext,
+                pre_tap: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """With `pre_tap` the first conv takes its precontracted form
+        (`VoxConv.forward_pre_tap`) and skips the voxelization."""
         vl = self.voxel_layers
         dt = self.dtype or torch.float32
         r = self.resolution
-        g = ops.avg_voxelize(features, ctx, r, out_dtype=dt)
-        g = vl[3](swish(vl[1](vl[0](g), dt)))
+        if pre_tap is None:
+            g = vl[0](ops.avg_voxelize(features, ctx, r, out_dtype=dt))
+        else:
+            g = vl[0].forward_pre_tap(pre_tap, features[..., :3], ctx, r, dt)
+        g = vl[3](swish(vl[1](g, dt)))
         g = vl[5](vl[4](g), dt)
         if self.attention:
             b, c = g.shape[0], g.shape[-1]
@@ -229,12 +261,13 @@ def _stage_parts(layer):
     return list(layer) if isinstance(layer, nn.Sequential) else [layer]
 
 
-def _voxel_convs(convs, features, coords):
-    """Run a stage's PVConvs over one shared voxel context."""
+def _voxel_convs(convs, features, coords, pre_tap=None):
+    """Run a stage's PVConvs over one shared voxel context; `pre_tap`
+    serves the first."""
     if convs:
         ctx = ops.make_voxel_context(coords, convs[0].resolution)
-        for conv in convs:
-            features = conv(features, ctx)
+        for p, conv in enumerate(convs):
+            features = conv(features, ctx, pre_tap if p == 0 else None)
     return features
 
 
@@ -265,10 +298,11 @@ class PVCNNEncoder:
                                      dtype=dtype) if use_att else None)
 
     def __call__(self, features: torch.Tensor, coords: torch.Tensor,
-                 temb: torch.Tensor):
+                 temb: torch.Tensor, pre_tap: Optional[torch.Tensor] = None):
         """features (B, N, C0), coords (B, N, 3) float32, temb (B, E) ->
         (bottleneck features, its coords, temb, the coords and the input
-        features of every stage)."""
+        features of every stage). `pre_tap`: the precontracted taps of
+        stage 0's first conv (`VoxConv.forward_pre_tap`)."""
         dt = self.dtype or torch.float32
         coords_list, skips = [], []
         for i, layer in enumerate(self.sa_layers):
@@ -281,7 +315,8 @@ class PVCNNEncoder:
                 f = torch.cat([features.to(dt),
                                temb[:, None, :].to(dt).expand(-1, n, -1)], -1)
             *convs, sa = _stage_parts(layer)
-            features, coords = sa(_voxel_convs(convs, f, coords), coords)
+            features, coords = sa(_voxel_convs(
+                convs, f, coords, pre_tap if i == 0 else None), coords)
         if self.global_att is not None:
             features = self.global_att(features).to(dt)
         return features, coords, temb, coords_list, skips
@@ -386,11 +421,14 @@ class PVCNN2(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=g)
                         * self.classifier_init_scale)
 
-    def forward(self, inputs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, t: torch.Tensor,
+                pre_tap: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`pre_tap` (B, N, 27 * Cout0): stage 0's first conv in its
+        precontracted form."""
         temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
         coords = inputs[..., :3].float()
         features = inputs if self.dtype is None else inputs.to(self.dtype)
         feats, ccoords, temb, coords_list, skips = self.encoder(
-            features, coords, temb)
+            features, coords, temb, pre_tap)
         skips[0] = inputs[..., 3:]
         return self.decoder(feats, ccoords, temb, coords_list, skips)

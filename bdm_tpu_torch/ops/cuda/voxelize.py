@@ -43,6 +43,14 @@ def kernel_path(in_dtype: torch.dtype, out_dtype: torch.dtype,
     return vec, lanes
 
 
+def run_counts(ids_sorted: torch.Tensor,
+               voxel_lo: torch.Tensor) -> torch.Tensor:
+    """The occupancy of each sorted point's voxel, (B, N) float32 >= 1:
+    the length of its run in the sorted ids."""
+    counts = voxel_lo[:, 1:] - voxel_lo[:, :-1]                  # (B, R^3)
+    return torch.gather(counts, 1, ids_sorted.long()).float()
+
+
 def scatter_mean_plain(features: torch.Tensor, order: torch.Tensor,
                        ids_sorted: torch.Tensor, voxel_lo: torch.Tensor,
                        resolution: int,
@@ -60,9 +68,7 @@ def scatter_mean_plain(features: torch.Tensor, order: torch.Tensor,
     fm = torch.gather(features, 1,
                       order.long()[..., None].expand(b, n, c)).float()
     if divide:
-        counts = (voxel_lo[:, 1:] - voxel_lo[:, :-1])            # (B, R^3)
-        cnt = torch.gather(counts, 1, ids_sorted.long()).float()  # (B, N)
-        fm = fm / cnt[..., None]
+        fm = fm / run_counts(ids_sorted, voxel_lo)[..., None]
     flat = (ids_sorted.long()
             + torch.arange(b, device=features.device)[:, None] * r3)
     out = torch.zeros((b * r3, c), dtype=torch.float32,

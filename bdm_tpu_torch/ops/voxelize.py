@@ -72,6 +72,24 @@ def avg_voxelize(features: torch.Tensor, ctx: VoxelContext, resolution: int,
                              ids=ctx.ids)
 
 
+def run_counts_sorted(ctx: VoxelContext) -> torch.Tensor:
+    """(B, N) float32: the occupancy of each sorted point's voxel (aligned
+    with `ctx.order`), from the run starts."""
+    return _vox.run_counts(ctx.ids_sorted, ctx.voxel_lo)
+
+
+def scatter_mean_contributions(features: torch.Tensor, ctx: VoxelContext,
+                               resolution: int) -> torch.Tensor:
+    """Scatter-mean as pre-divided contributions: each point's features
+    divided by its voxel's occupancy, summed in sorted order in float32
+    -> (B, R^3, C) float32, the mean grid (empty voxels zero). The
+    precontracted stage-0 conv scatters its 27 * Cout tap values so: one
+    launch of the scatter-mean kernel, float32 out."""
+    b, c = features.shape[0], features.shape[-1]
+    return avg_voxelize(features, ctx, resolution, torch.float32).reshape(
+        b, resolution ** 3, c)
+
+
 def trilinear_devoxelize(grid: torch.Tensor,
                          norm_coords: torch.Tensor) -> torch.Tensor:
     """Sample (B, R, R, R, C) at float coords in [0, R-1] -> (B, N, C)

@@ -52,7 +52,9 @@ def coupled_sampler(pc2: PC2Model, pvd: PVDModel, batch: Dict[str, Any],
     branch from the same x_t, one after the other, that stops `roll_short`
     steps before `milestone - roll_step`; then
     `combine(i, out_recon, out_prior, camera, cond, noise)` gives the next
-    x_t. Returns (B, N, 3) points in the model's normalized space."""
+    x_t. The batch's "mask" and "distance_transform" reach the
+    conditioning where the configuration uses them. Returns (B, N, 3)
+    points in the model's normalized space."""
     image, camera = batch["image"], batch["camera"]
     if noise is None:
         noise = NoiseProvider(device=image.device)
@@ -62,12 +64,18 @@ def coupled_sampler(pc2: PC2Model, pvd: PVDModel, batch: Dict[str, Any],
     b = image.shape[0]
     x = noise.initial((b, num_points, 3))
     x = x - x.mean(dim=1, keepdim=True)
-    cond = pc2.prepare_cond(pc2.conditioning_map(image))
+    raw = pc2.batch_conditioning(batch)
+    # the fusion step reads the prepared map; the recon windows the map
+    # in its sampling form (precontracted where that applies)
+    cond = pc2.prepare_cond(raw)
+    recon_cond = (pc2.precontract_cond(raw) if pc2.precontract_enabled
+                  else cond)
 
     def recon(x, start, end, branch, i):
         return pc2.interaction_sample(
-            x, camera, cond, start, end, num_inference_steps,
-            lambda j, n: noise.step(branch, i, j, n, x.shape), scheduler)
+            x, batch, start, end, num_inference_steps,
+            lambda j, n: noise.step(branch, i, j, n, x.shape), scheduler,
+            cond=recon_cond)
 
     for i in range(times):
         if i == 0:

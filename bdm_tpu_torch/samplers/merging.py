@@ -8,8 +8,10 @@ of the fusion network plus one scheduler step at t = `milestone -
 roll_step` merges them (`nstep_fuse`).
 
 Supported here: sampling (`bdm_merging`, `BDMMergingModel.sample`) with
-the DDPM and DDIM schedulers, `precontract=False`, and the training loss
-of the fusion network (`BDMMergingModel.loss`).
+the DDPM and DDIM schedulers, every `ProjectionConfig` option of the
+conditioning (the PC2 windows precontract where PC2's configuration asks;
+the fusion network reads the raw map), and the training loss of the fusion
+network (`BDMMergingModel.loss`).
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ class BDMMergingModel(ProjectionConditioned):
         sched = self.schedulers[scheduler]
         timesteps = sched.set_timesteps(num_inference_steps)
         x = noise.initial((image.shape[0], num_points, 3))
-        cond = self.prepare_cond(self.conditioning_map(image))
+        cond = self.prepare_cond(self.batch_conditioning(batch))
         for j, t in enumerate(timesteps):
             eps = self.predict(x, x, t, camera, cond, "fusion_1step")
             x = sched.step(eps, int(t), x,

@@ -1,11 +1,11 @@
 """PVD, the unconditional point-cloud prior (`bdm_tpu/samplers/pvd.py`):
-a PVCNN2 with no extra feature channels driven by the 'fixedsmall'
-Gaussian diffusion, betas linear(1e-4, 0.02, 1000). The model lives on
-the card unless the caller passes `device="cpu"`."""
+a PVCNN2 with no extra feature channels driven by the Gaussian diffusion,
+by default 'fixedsmall' on betas linear(1e-4, 0.02, 1000). The model lives
+on the card unless the caller passes `device="cpu"`."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -15,7 +15,7 @@ from bdm_tpu_torch.diffusion import GaussianDiffusion, pvd_betas
 from bdm_tpu_torch.models.layers import dropout_masks
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2)
-from bdm_tpu_torch.samplers.noise import TrainNoise
+from bdm_tpu_torch.samplers.noise import NoiseProvider, TrainNoise
 from bdm_tpu_torch.samplers.pc2 import compute_dtype_of
 
 
@@ -24,7 +24,9 @@ class PVDModel(nn.Module):
 
     def __init__(self, embed_dim: int = 64, use_att: bool = True,
                  beta_start: float = 1e-4, beta_end: float = 2e-2,
-                 num_timesteps: int = 1000, sa_blocks=PVCNN_SA_BLOCKS,
+                 num_timesteps: int = 1000, schedule_type: str = "linear",
+                 model_var_type: str = "fixedsmall",
+                 sa_blocks=PVCNN_SA_BLOCKS,
                  fp_blocks=PVCNN_FP_BLOCKS, mixed_precision: str = "no",
                  device=None, dropout: float = 0.1,
                  width_multiplier: int = 1,
@@ -41,7 +43,8 @@ class PVDModel(nn.Module):
                             voxel_resolution_multiplier=(
                                 voxel_resolution_multiplier))
         self.diffusion = GaussianDiffusion(
-            pvd_betas(beta_start, beta_end, num_timesteps))
+            pvd_betas(schedule_type, beta_start, beta_end, num_timesteps),
+            model_var_type)
         self.to(device).eval()
 
     def reset_parameters(self, seed: int = 0) -> None:
@@ -69,3 +72,15 @@ class PVDModel(nn.Module):
                                     int(final_time) - 1, -1)):
             x = self.diffusion.p_sample(self.model, x, t, noise(j, steps))
         return x
+
+    @torch.inference_mode()
+    def sample(self, shape, noise: Optional[NoiseProvider] = None
+               ) -> torch.Tensor:
+        """Unconditional generation: `noise.initial(shape)` reverse-diffused
+        over the whole chain, t = T - 1 down to 0; step j draws
+        `noise.step("seg", 0, j, T, shape)`."""
+        if noise is None:
+            noise = NoiseProvider(device=next(self.parameters()).device)
+        return self.generate_window(
+            noise.initial(shape), self.diffusion.num_timesteps, 0,
+            lambda j, n: noise.step("seg", 0, j, n, shape))

@@ -14,7 +14,7 @@ to the original. Layout rules (flax -> torch):
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -172,12 +172,59 @@ def vit_state_dict(vit: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def pc2_state_dict(params: Dict, specs: PVCNN2Specs) -> Dict[str, np.ndarray]:
+def simple_state_dict(params: Dict, prefix: str = ""
+                      ) -> Dict[str, np.ndarray]:
+    """A JAX SimplePointModel tree -> the port's keys (the JAX module
+    names; the reference has no checkpoint of it)."""
+    p = params.get("params", params)
+    pre = f"{prefix}." if prefix else ""
+    out: Dict[str, np.ndarray] = {}
+    _embedf(out, f"{pre}embedf", p["embedf"])
+    _dense(out, f"{pre}input_projection", p["input_projection"])
+    i = 0
+    while f"block{i}" in p:
+        blk, b = p[f"block{i}"], f"{pre}blocks.{i}"
+        _norm(out, f"{b}.norm", blk["norm"])
+        for name in ("proj_in", "gate", "proj_out"):
+            _dense(out, f"{b}.{name}", blk[name])
+        i += 1
+    _norm(out, f"{pre}final_norm", p["final_norm"])
+    _dense(out, f"{pre}output_projection", p["output_projection"])
+    return out
+
+
+def pvcnn2pp_state_dict(params: Dict, specs: PVCNN2Specs, prefix: str = ""
+                        ) -> Dict[str, np.ndarray]:
+    """A JAX PVCNN2PlusPlus tree -> `simple.*`, `pvcnn.*` (the reference
+    PVCNN2 keys; `specs` are the inner PVCNN2's), `head_fc.*`,
+    `output_projection.*`."""
+    p = params.get("params", params)
+    pre = f"{prefix}." if prefix else ""
+    out = simple_state_dict(p["simple"], f"{pre}simple")
+    out.update(pvcnn2_state_dict(p["pvcnn"], specs, f"{pre}pvcnn"))
+    _dense(out, f"{pre}head_fc", p["head_fc"])
+    _dense(out, f"{pre}output_projection", p["output_projection"])
+    return out
+
+
+def pc2_state_dict(params: Dict, specs: Optional[PVCNN2Specs],
+                   point_cloud_model: str = "pvcnn"
+                   ) -> Dict[str, np.ndarray]:
     """JAX PC2 params {'feature_model', 'point_cloud_model'} -> the
     reference PC2 keys (`point_cloud_model.model.*`,
-    `feature_model.model.*`)."""
-    out = pvcnn2_state_dict(params["point_cloud_model"], specs,
-                            "point_cloud_model.model")
+    `feature_model.model.*`), at any channel accounting (the shapes come
+    from the tree), for the backbone `point_cloud_model` ("pvcnn",
+    "simple" or "pvcnnplusplus"); `specs` are the PVCNN2's, PVCNN2++'s
+    inner one's, or None for the simple backbone."""
+    pcm, pre = params["point_cloud_model"], "point_cloud_model.model"
+    if point_cloud_model == "pvcnn":
+        out = pvcnn2_state_dict(pcm, specs, pre)
+    elif point_cloud_model == "simple":
+        out = simple_state_dict(pcm, pre)
+    elif point_cloud_model == "pvcnnplusplus":
+        out = pvcnn2pp_state_dict(pcm, specs, pre)
+    else:
+        raise NotImplementedError(point_cloud_model)
     fm = params.get("feature_model", {})
     fm = fm.get("params", fm)
     if "vit" in fm:

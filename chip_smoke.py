@@ -2,7 +2,9 @@
 """Smoke run of bdm_tpu_torch on one NVIDIA GPU: build the Hopper kernels,
 check each against its plain PyTorch version, forward and backward, then
 run the port's paths at full model width: BDM-Blending and BDM-Merging
-sampling, and training of PC2, PVD and the fusion network.
+sampling, PC2 and PVD sampling, PC2's conditioning options and backbones,
+the precontracted stage-0 conv, and training of PC2, PVD and the fusion
+network.
 
     python3 chip_smoke.py
 
@@ -39,13 +41,20 @@ Phases, in the order they run (any failure exits non-zero):
      (no TF32 in the library call) at 64 -> 64 and 390 -> 32 and 32 -> 32
      R 32, 128 -> 128 R 9 and 512 -> 512 R 8, beside the recorded times of
      the float32 kernels they replaced (`REPLACED_F32_MS`); FPS past what a
-     thread holds in registers (`FPS_LARGE`, N up to 40,000), exact;
+     thread holds in registers (`FPS_LARGE`, N up to 40,000), exact; the
+     stage-0 conv at the widths of the options (`STAGE0_CINS`: 391, 392,
+     774 and 67 -> 32, R 32) timed beside `F.conv3d`, and the precontract
+     tap scatter (bf16 in, float32 out, C 864) bit for bit against the CPU
+     and timed beside `index_add_`;
   a'. gradients: each differentiable wrapper forward through its kernel
      and backward on the card, against forward and backward of its plain
      version under PyTorch's own autograd on the card;
-  d. tiny BDM-Blending and BDM-Merging runs through the kernels against
-     the same runs on the CPU through the plain versions, same weights
-     (the fusion zero-convs non-zero) and noise;
+  d. tiny BDM-Blending, BDM-Merging, BDM-Blending with `precontract`,
+     PC2 `sample` with PNDM and PC2 `sample` with the mask, its distance
+     transform and global features, through the kernels against the same
+     runs on the CPU through the plain versions, same weights (the fusion
+     zero-convs non-zero) and noise; BDM-Blending with and without
+     `precontract` on the card agree (float32);
   f. tiny PC2 training, three steps on the card through the kernels
      against the same three steps on the CPU through the plain versions
      (same weights, timesteps and noise, dropout 0);
@@ -58,6 +67,18 @@ Phases, in the order they run (any failure exits non-zero):
      network initialised from them, zero-convs non-zero), B=2, N=4096,
      bf16, 50 DDPM steps, five interior milestones with roll step 2, so
      each runs a one-step roll of both branches and a fusion step;
+  i. `PC2Model.sample` at production widths, B=2, N=4096, bf16: DDPM 50
+     steps, DDIM 50 steps at eta 0.5 keeping the cloud every 10, PNDM 50
+     inference steps; `PVDModel.sample` over a 50-step chain, fixedsmall
+     and fixedlarge;
+  j. one PC2 denoise and DDPM step at B=8, N=4096, bf16 for each option
+     of `OPTIONS`: mask + distance transform, global features, nearest
+     splat, custom betas, PVCNN2++ and the simple backbone (no kernel);
+  k. `precontract` against the plain stage-0 conv: BDM-Blending as in c
+     with it (the clouds within a stated Chamfer bound), then one denoise
+     step at B=8 both ways in turns: its error against a float32 twin, the
+     stage-0 conv each way, the step's device time, `precontract_cond`'s
+     time and the peak memory;
   g. PC2 training at production widths, B=8, N=4096, four steps of
      `train_loop` (AdamW, clip 50, EMA) on a repeated seeded batch, in
      float32 and then at bf16 compute; before the float32 steps, the loss
@@ -66,14 +87,15 @@ Phases, in the order they run (any failure exits non-zero):
   h. PVD training at `width_multiplier=2`, B=4, N=2048, float32, two
      steps (its 512 -> 512 conv at R=8), then one training step of the
      fusion network at production widths, B=2, bf16, both towers frozen.
-In c, e, g and h every kernel of the path must have launched and no plain
-version may have run on the card; on the bfloat16 paths (b, c, e, bf16 g,
-the fusion step of h) every launch of attention and conv3d must have taken
+In c, e, g, h, i, j and k every kernel of the path must have launched and
+no plain version may have run on the card (the simple backbone of j:
+none may launch); on the bfloat16 paths (b, c, e, i, j, k, bf16 g, the
+fusion step of h) every launch of attention and conv3d must have taken
 the tensor-core kernel, on the float32 paths the CUDA-core one. In the
-phases at production widths (b, c, e, g, h) every launch of the kernels
-whose shapes follow the model's widths (conv3d, attention, scatter_mean)
-notes its shape; the run fails if a path gave a kernel a shape that phase a
-did not hold against the plain version.
+phases at production widths (b, c, e, i, j, k, g, h) every launch of the
+kernels whose shapes follow the model's widths (conv3d, attention,
+scatter_mean) notes its shape; the run fails if a path gave a kernel a
+shape that phase a did not hold against the plain version.
 
 Weights are random from a seed (the released checkpoints are not in the
 repository); throughput does not depend on them. The last line of standard
@@ -196,6 +218,13 @@ BEFORE_MS = {
     "scatter_sum N3072 S256 C256": (0.0240, "back to back")}
 
 
+# PC2's stage-0 input widths under the options: mask (391), mask and
+# distance transform (392), global ViT features (3 + 3 + 384 + 384), and
+# PVCNN2++'s inner PVCNN2 (3 + 64)
+STAGE0_CINS = (391, 392, 774, 67)
+# The precontracted stage-0 conv scatters 27 taps of its 32 outputs
+TAP_C = 27 * 32
+
 # Phase a holds conv3d at the convs of PC2, PVD and the fusion network,
 # (Cin, Cout, R); an odd grid (R=9, the TPU's per-slab `conv3d_pallas`);
 # those of PVD at twice the width, the widest of them Cin 512 (the TPU's
@@ -204,7 +233,7 @@ CONVS = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
          (64, 64, 16), (192, 128, 8), (128, 128, 8), (256, 256, 8),
          (128, 128, 16), (64, 64, 32), (128, 128, 9),
          (3, 64, 32), (128, 128, 32), (192, 128, 16), (256, 256, 16),
-         (320, 256, 8), (512, 512, 8)]
+         (320, 256, 8), (512, 512, 8)] + [(c, 32, 32) for c in STAGE0_CINS]
 # ... and attention at (S, C): C 64 at the published widths, C 128 (the
 # kernel's widest) in PVD at twice the width
 ATTNS = [(4096, 64), (4096, 128)]
@@ -215,7 +244,8 @@ SITES = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096),
          (192, 8, 256), (256, 8, 64), (256, 8, 256), (128, 16, 1024),
          (64, 32, 4096),
          (3, 32, 2048), (64, 32, 2048), (128, 32, 2048), (192, 16, 1024),
-         (256, 16, 1024), (320, 8, 256), (512, 8, 64), (512, 8, 256)]
+         (256, 16, 1024), (320, 8, 256), (512, 8, 64), (512, 8, 256),
+         (TAP_C, 32, 4096)] + [(c, 32, 4096) for c in STAGE0_CINS]
 
 # The shapes the paths gave the kernels whose shapes follow the model's
 # widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N).
@@ -629,6 +659,52 @@ def check_kernels(dev):
         **bound([f0, ctx0.order, ctx0.voxel_lo, grid0], b * 4096 * 390 * 2,
                 "f32"))
 
+    # the precontracted stage-0 conv's tap scatter: bf16 taps, float32 out
+    # at C 864, equal to the CPU's plain version bit for bit; one PyTorch
+    # call: `index_add_` of the pre-divided float32 rows
+    taps = randn(b, 4096, TAP_C, dtype=torch.bfloat16)
+    targs = (taps, ctx0.order, ctx0.ids_sorted, ctx0.voxel_lo, 32,
+             torch.float32)
+    tgrid = vmean(*targs)
+    if not torch.equal(tgrid.cpu(), voxelize.scatter_mean_plain(
+            *(t.cpu() if torch.is_tensor(t) else t for t in targs))):
+        fail(f"scatter_mean bf16 -> float32 C={TAP_C} is not the CPU's "
+             f"plain version bit for bit")
+    trows = (torch.gather(taps, 1, ctx0.order.long()[..., None].expand_as(
+        taps)).float() / cnt[..., None]).reshape(-1, TAP_C)
+    tacc = torch.empty((b * 32 ** 3, TAP_C), device=dev)
+    res["scatter_mean"]["precontract_bf16_to_f32_c864_r32"] = dict(
+        kernel_path=voxelize.kernel_path(torch.bfloat16, torch.float32,
+                                         TAP_C),
+        ms=timed_ms(lambda: vmean(*targs), inner=20),
+        ms_one_launch=timed_ms(lambda: vmean(*targs)),
+        plain_ms=timed_ms(lambda: voxelize.scatter_mean_plain(*targs)),
+        library_ms=timed_ms(lambda: tacc.zero_().index_add_(0, dst, trows),
+                            inner=20),
+        **bound([taps, ctx0.order, ctx0.voxel_lo, tgrid],
+                b * 4096 * TAP_C * 2, "f32"))
+    del taps, tgrid, trows, tacc
+
+    def bf16_site(c):
+        """Times of the bf16 stage-0 voxelize at width C (R 32, N 4096)
+        beside `index_add_` of the pre-divided float32 rows."""
+        f = randn(b, 4096, c, dtype=torch.bfloat16)
+        a = (f, ctx0.order, ctx0.ids_sorted, ctx0.voxel_lo, 32,
+             torch.bfloat16)
+        out = vmean(*a)
+        src = (torch.gather(f, 1, ctx0.order.long()[..., None].expand_as(f))
+               .float() / cnt[..., None]).reshape(-1, c)
+        acc_c = torch.empty((b * 32 ** 3, c), device=dev)
+        return dict(
+            ms=timed_ms(lambda: vmean(*a), inner=20),
+            library_ms=timed_ms(lambda: acc_c.zero_().index_add_(0, dst, src),
+                                inner=20),
+            **bound([f, ctx0.order, ctx0.voxel_lo, out], b * 4096 * c * 2,
+                    "f32"))
+
+    res["scatter_mean"]["stage0_bf16_by_c"] = {
+        str(c): bf16_site(c) for c in STAGE0_CINS}
+
     convs = CONVS
     # beside them, held but on no path: every Cin of the list on the odd
     # grid (tiles ragged in all three axes), a Cout that is no multiple of
@@ -693,7 +769,10 @@ def check_kernels(dev):
         # the float32 convs that dominate a float32 PC2 step
         f32_390_32_r32=conv_times(390, 32, 32, torch.float32),
         f32_32_32_r32=conv_times(32, 32, 32, torch.float32),
-        bf16_512_512_r8=conv_times(512, 512, 8))
+        bf16_512_512_r8=conv_times(512, 512, 8),
+        # stage 0 under the options (bf16): mask, mask + distance
+        # transform, global ViT features, PVCNN2++
+        stage0_by_cin={str(c): conv_times(c, 32, 32) for c in STAGE0_CINS})
 
     attns = ATTNS
 
@@ -965,17 +1044,28 @@ def tiny_config():
 
 
 def tiny_parity(dev):
-    """Phase d: tiny BDM-Blending and BDM-Merging on the card (kernels) vs
-    on the CPU (plain versions); 1e-3 absolute, as the CPU tests hold the
-    port to the JAX reference."""
+    """Phase d: tiny BDM-Blending and BDM-Merging, BDM-Blending with
+    `precontract`, PC2 `sample` with PNDM and PC2 `sample` (DDPM) with the
+    mask, its distance transform and global features, each on the card
+    (kernels) vs on the CPU (plain versions); 1e-3 absolute, as the CPU
+    tests hold the port to the JAX reference. -> max|err| between BDM-B
+    with and without `precontract` on the card, float32: the same sum
+    reassociated, so it bounds what is not bf16 rounding in phase k."""
+    import dataclasses
+
     import torch
+    from bdm_tpu_torch.conditioning import compute_distance_transform
     from bdm_tpu_torch.samplers import (BDMMergingModel, PC2Model, PVDModel,
                                         bdm_blending, bdm_merging)
     from bdm_tpu_torch.tools.standins import camera, live_zero_convs
     sa, fp, cfg = TINY_SA, TINY_FP, tiny_config()
-    outs = {"BDM-B": [], "BDM-M": []}
+    outs = {k: [] for k in ("BDM-B", "BDM-M", "BDM-B precontract",
+                            "PC2 PNDM", "PC2 mask + DT + global")}
     image = torch.rand(2, 16, 16, 3,
                        generator=torch.Generator().manual_seed(1))
+    mask = (torch.rand(2, 16, 16, 1, generator=torch.Generator()
+                       .manual_seed(2)) > 0.4).float()
+    dt = torch.from_numpy(compute_distance_transform(mask.numpy()))
     for d in ("cpu", dev):
         pc2 = PC2Model(cfg, sa, fp, device=d)
         pvd = PVDModel(embed_dim=8, sa_blocks=sa, fp_blocks=fp, device=d)
@@ -996,11 +1086,37 @@ def tiny_parity(dev):
         outs["BDM-M"].append(bdm_merging(
             merge, pc2, pvd, batch, 64, [8, 6, 4, 2, 0], 2,
             noise=_CpuNoise(SEED, d), num_inference_steps=8).cpu())
+        pre = PC2Model(dataclasses.replace(cfg, precontract=True), sa, fp,
+                       device=d)
+        pre.load_state_dict(pc2.state_dict())
+        outs["BDM-B precontract"].append(bdm_blending(
+            pre, pvd, batch, 64, [8, 7, 5, 3, 0], 1,
+            noise=_CpuNoise(SEED, d), num_inference_steps=8).cpu())
+        outs["PC2 PNDM"].append(pc2.sample(
+            batch, 64, noise=_CpuNoise(SEED, d), scheduler="pndm",
+            num_inference_steps=8).cpu())
+        opt = PC2Model(dataclasses.replace(
+            cfg, use_mask=True, use_distance_transform=True,
+            use_global_features=True), sa, fp, device=d)
+        opt.reset_parameters(SEED)
+        with torch.no_grad():
+            head = opt.backbone.classifier[2].weight
+            head.copy_(torch.randn(
+                head.shape, generator=torch.Generator().manual_seed(5)) * 0.1)
+        outs["PC2 mask + DT + global"].append(opt.sample(
+            dict(batch, mask=mask.to(d), distance_transform=dt.to(d)), 64,
+            noise=_CpuNoise(SEED, d), num_inference_steps=8).cpu())
     for name, (cpu, card) in outs.items():
         err = (cpu - card).abs().max().item()
         print(f"tiny {name}, kernels vs CPU plain: max|err| {err:.3e}")
         if not (torch.isfinite(card).all() and err < 1e-3):
             fail(f"tiny {name} on the card differs from the CPU run: {err}")
+    pre_err = (outs["BDM-B precontract"][1] - outs["BDM-B"][1]).abs().max()
+    print(f"tiny BDM-B float32 on the card, precontract vs not: max|err| "
+          f"{pre_err.item():.3e}")
+    if not pre_err < 1e-3:
+        fail(f"tiny BDM-B with precontract differs from without: {pre_err}")
+    return pre_err.item()
 
 
 def tiny_training(dev):
@@ -1084,8 +1200,9 @@ def forwards(pc2, merge, dev):
 
 
 def sampler_path(name, run, milestones, roll_step, dev):
-    """Phases c and e: one sampler end to end at full width, B=2, N=4096,
-    50 DDPM steps; returns the launch counts and the wall time."""
+    """Phases c, e and k: one sampler end to end at full width, B=2,
+    N=4096, 50 DDPM steps; returns the launch counts, the wall time and
+    the cloud."""
     import torch
     from bdm_tpu_torch.ops import cuda as kernels
     from bdm_tpu_torch.samplers import NoiseProvider
@@ -1110,7 +1227,265 @@ def sampler_path(name, run, milestones, roll_step, dev):
     if out.shape != (b, n, 3) or not torch.isfinite(out).all():
         fail(f"{name} output {tuple(out.shape)} not finite")
     # sampling differentiates nothing: the blend's backward kernel rests
-    return check_path(name, counts, paths, ("scatter_sum",)), wall
+    return check_path(name, counts, paths, ("scatter_sum",)), wall, out
+
+
+def single_model_sampling(pc2, pvd, dev):
+    """Phase i: `PC2Model.sample` at full width, B=2, N=4096, bf16, with
+    DDPM 50 steps, DDIM 50 steps at eta 0.5 keeping the cloud every 10
+    steps, and PNDM 50 inference steps (59 forwards); `PVDModel.sample`
+    over a 50-step chain, fixedsmall and fixedlarge (PVD's weights).
+    -> {path: {"wall_s", "launches"}}."""
+    import torch
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.samplers import NoiseProvider, PVDModel
+    from bdm_tpu_torch.tools.standins import camera
+    b, n = 2, 4096
+    g = torch.Generator().manual_seed(SEED + 11)
+    batch = {"image": torch.rand(b, 224, 224, 3, generator=g).to(dev),
+             "camera": camera(b, dev)}
+    runs = {
+        "pc2_sample_ddpm": partial(pc2.sample, batch, n, scheduler="ddpm"),
+        "pc2_sample_ddim_eta_0.5_every_10": partial(
+            pc2.sample, batch, n, scheduler="ddim", eta=0.5,
+            return_sample_every_n_steps=10),
+        "pc2_sample_pndm": partial(pc2.sample, batch, n, scheduler="pndm")}
+    for var in ("fixedsmall", "fixedlarge"):
+        short = PVDModel(num_timesteps=50, model_var_type=var,
+                         mixed_precision="bf16")
+        short.load_state_dict(pvd.state_dict())
+        runs[f"pvd_sample_{var}"] = partial(short.sample, (b, n, 3))
+    out = {}
+    for name, run in runs.items():
+        kw = {} if name.startswith("pvd") else {"num_inference_steps": 50}
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        cloud = run(noise=NoiseProvider(SEED), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        evo = None
+        if isinstance(cloud, tuple):
+            cloud, evo = cloud
+            if evo.shape != (b, 5, n, 3) or not torch.isfinite(evo).all():
+                fail(f"{name}: evolutions {tuple(evo.shape)} not finite")
+        if cloud.shape != (b, n, 3) or not torch.isfinite(cloud).all():
+            fail(f"{name} output {tuple(cloud.shape)} not finite")
+        launches = check_path(name, kernels.counts(), kernels.path_counts(),
+                              ("scatter_sum",))
+        print(f"{name} B={b} N={n} bf16: {wall:.2f} s wall; launches "
+              f"{json.dumps(launches)}")
+        out[name] = dict(wall_s=wall, launches=launches)
+    return out
+
+
+# Phase j's options, one PC2 each
+OPTIONS = {
+    "mask_dt": dict(use_mask=True, use_distance_transform=True),
+    "global_cls": dict(use_global_features=True),
+    "nearest": dict(raster_splat="nearest"),
+    "custom_betas": dict(beta_schedule="custom"),
+    "pvcnnplusplus": dict(point_cloud_model="pvcnnplusplus"),
+    "simple": dict(point_cloud_model="simple"),
+}
+
+
+def option_steps(dev):
+    """Phase j: one denoise and DDPM step of PC2 at full width, B=8,
+    N=4096, bf16, for each of `OPTIONS` (the mask, a disc, and its
+    distance transform from the host in the batch); host clock around the
+    second, synchronised. The simple backbone runs no kernel: its path
+    must launch none, and it is held for finite output only.
+    -> {option: {"ms", "launches"}}."""
+    import torch
+    from bdm_tpu_torch.conditioning import compute_distance_transform
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig
+    from bdm_tpu_torch.tools.standins import camera
+    b, n = 8, 4096
+    g = torch.Generator().manual_seed(SEED + 12)
+    yy, xx = torch.meshgrid(torch.arange(224.0), torch.arange(224.0),
+                            indexing="ij")
+    mask = ((yy - 112) ** 2 + (xx - 100) ** 2 < 70 ** 2).float()
+    mask = mask[None, ..., None].expand(b, 224, 224, 1).contiguous()
+    batch = {"image": torch.rand(b, 224, 224, 3, generator=g).to(dev),
+             "camera": camera(b, dev), "mask": mask.to(dev),
+             "distance_transform": torch.from_numpy(
+                 compute_distance_transform(mask.numpy())).to(dev)}
+    x = (torch.randn(b, n, 3, generator=g) * 0.3).to(dev)
+    z = torch.randn(b, n, 3, generator=g).to(dev)
+    t = torch.full((b,), 500, dtype=torch.long, device=dev)
+    out = {}
+    for name, kw in OPTIONS.items():
+        pc2 = PC2Model(ProjectionConfig(mixed_precision="bf16", **kw))
+        pc2.reset_parameters(SEED)
+
+        def step():
+            cond = pc2.prepare_cond(pc2.batch_conditioning(batch))
+            eps = pc2.denoise(x, t, batch["camera"], cond)
+            return pc2.schedulers["ddpm"].step(eps, 500, x, z)
+
+        with torch.inference_mode():
+            step()
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            x_prev = step()
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if x_prev.shape != (b, n, 3) or not torch.isfinite(x_prev).all():
+            fail(f"option {name}: output {tuple(x_prev.shape)} not finite")
+        unused = (tuple(kernels.KERNELS) if name == "simple"
+                  else ("scatter_sum",))
+        launches = check_path(f"option {name}", kernels.counts(),
+                              kernels.path_counts(), unused)
+        note = (" (the simple backbone runs no kernel: held for finite "
+                "output only)" if name == "simple" else "")
+        print(f"option {name} (in {pc2.in_channels} channels) B={b} N={n} "
+              f"bf16, conditioning + denoise + DDPM step: {ms:.2f} ms; "
+              f"launches {json.dumps(launches)}{note}")
+        out[name] = dict(ms=ms, launches=launches)
+        del pc2
+        torch.cuda.empty_cache()
+    return out
+
+
+def chamfer(a, b):
+    """Per cloud: mean squared distance to the nearest point of the other
+    cloud, both ways, summed."""
+    import torch
+    d2 = torch.cdist(a.float(), b.float()).square()
+    return d2.min(2).values.mean(1) + d2.min(1).values.mean(1)
+
+
+def precontract_ab(pc2, pvd, plain_cloud, tiny_f32_err, dev):
+    """Phase k: PC2 with `precontract` (the production weights) against
+    without. BDM-Blending as phase c (same batch, weights and noise): the
+    two clouds within Chamfer 5e-3, the bound `tests/test_bf16_bound.py`
+    holds bf16 BDM-B to against its float32 twin; the algebra is exact
+    (phase d's float32 tiny runs agree within 1e-3, eight steps of float32
+    sums in another order), so what remains is
+    bf16 rounding at other places. Then one denoise step at B=8, N=4096,
+    bf16, both ways, in turns (plain, precontract, precontract, plain):
+    the precontracted eps no further from the float32 step's (the same
+    weights at float32, plain) than twice the plain bf16 eps is, relative
+    to the largest entry; the stage-0 conv each way (CUDA
+    events, 10 calls back to back behind a matmul): voxelize + conv3d
+    390 -> 32 against the x_t taps + the tap scatter at C 864 +
+    `tap_shift_sum`; the step's device time (`torch.profiler`, kernel
+    sum; and CUDA events around one step); `precontract_cond` once a
+    trajectory (CUDA events); the peak memory of a step."""
+    import torch
+    from bdm_tpu_torch import ops
+    from bdm_tpu_torch.samplers import (PC2Model, ProjectionConfig,
+                                        bdm_blending)
+    from bdm_tpu_torch.tools.profile_step import breakdown
+    from bdm_tpu_torch.tools.standins import camera
+    pre = PC2Model(ProjectionConfig(mixed_precision="bf16", precontract=True))
+    pre.load_state_dict(pc2.state_dict())
+    launches, wall, cloud = sampler_path(
+        "BDM-B precontract", partial(bdm_blending, pre, pvd),
+        [50, 48, 46, 44, 6, 4, 2, 0], 1, dev)
+    cd = chamfer(cloud, plain_cloud).max().item()
+    paired = (cloud - plain_cloud).abs().max().item()
+    print(f"BDM-B bf16 precontract vs not: Chamfer {cd:.3e}, paired "
+          f"max|d| {paired:.3e}, cloud scale "
+          f"{plain_cloud.abs().max().item():.3f}; float32 tiny "
+          f"{tiny_f32_err:.3e}")
+    if not cd < 5e-3:
+        fail(f"BDM-B with precontract: Chamfer {cd} against without")
+    out = dict(bdm_b=dict(wall_s=wall, launches=launches, chamfer=cd,
+                          paired_max_abs=paired, tiny_f32_err=tiny_f32_err))
+
+    b, n = 8, 4096
+    g = torch.Generator().manual_seed(SEED + 13)
+    image = torch.rand(b, 224, 224, 3, generator=g).to(dev)
+    cam = camera(b, dev)
+    x = (torch.randn(b, n, 3, generator=g) * 0.3).to(dev)
+    t = torch.full((b,), 500, dtype=torch.long, device=dev)
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        raw = pc2.conditioning_map(image)
+        cond = pc2.prepare_cond(raw)
+        pcond = pre.precontract_cond(raw)
+        out["precontract_cond_ms"] = timed_ms(
+            lambda: pre.precontract_cond(raw), reps=3, warmup=1)
+        size = {"plain": cond.numel() * cond.element_size(),
+                "precontract": sum(v.numel() * v.element_size()
+                                   for v in pcond if v is not None)}
+        f32 = PC2Model(ProjectionConfig())
+        f32.load_state_dict(pc2.state_dict())
+        want = f32.denoise(x, t, cam, f32.prepare_cond(raw))
+        del f32, raw
+        eps = {"plain": pc2.denoise(x, t, cam, cond),
+               "precontract": pre.denoise(x, t, cam, pcond)}
+        err = {k: ((v - want).abs().max() / want.abs().max()).item()
+               for k, v in eps.items()}
+        err["precontract_vs_plain"] = (
+            (eps["precontract"] - eps["plain"]).abs().max()
+            / want.abs().max()).item()
+        print(f"denoise B={b} bf16 against float32, max|err| of the "
+              f"largest eps: {json.dumps(err)}")
+        if not err["precontract"] <= 2 * err["plain"]:
+            fail(f"precontracted bf16 denoise is further from float32 than "
+                 f"twice the plain bf16 one: {err}")
+        # stage 0's first conv each way, on this step's inputs
+        pv0 = pc2.backbone.sa_layers[0][0]
+        conv0, r = pv0.voxel_layers[0], pv0.resolution
+        cout = conv0.weight.shape[0]
+        ctx = ops.make_voxel_context(x, r)
+        x_in = pc2.x_t_input(x, cam, cond).to(bf16)
+        p_in, tap = pre._precontracted_input(x, cam, pcond)
+        tap, xt = tap.contiguous(), p_in[..., :3].to(bf16)
+        grid = ops.scatter_mean_contributions(tap, ctx, r).reshape(
+            (b,) + (r,) * 3 + (27 * cout,))
+        vox = ops.avg_voxelize(x_in, ctx, r, bf16)
+        parts = {
+            "plain": lambda: conv0(ops.avg_voxelize(x_in, ctx, r, bf16)),
+            "precontract": lambda: conv0.forward_pre_tap(tap, xt, ctx, r,
+                                                         bf16),
+            "plain_voxelize": lambda: ops.avg_voxelize(x_in, ctx, r, bf16),
+            "plain_conv3d": lambda: conv0(vox),
+            "precontract_tap_scatter": lambda: ops.scatter_mean_contributions(
+                tap, ctx, r),
+            "precontract_tap_shift_sum": lambda: ops.tap_shift_sum(grid,
+                                                                   cout)}
+        stage0 = {k: [] for k in parts}
+        step = {k: [] for k in eps}
+        events = {k: [] for k in eps}
+        calls = {"plain": lambda: pc2.denoise(x, t, cam, cond),
+                 "precontract": lambda: pre.denoise(x, t, cam, pcond)}
+        for way in ("plain", "precontract", "precontract", "plain"):
+            for k in parts:
+                if k.startswith(way):
+                    stage0[k].append(timed_ms(parts[k], inner=10))
+            prof = breakdown(calls[way])
+            step[way].append(prof)
+            events[way].append(timed_ms(calls[way]))
+        peak = {}
+        for way, call in calls.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            call()
+            torch.cuda.synchronize()
+            peak[way] = dict(peak_gib=torch.cuda.max_memory_allocated()
+                             / 2 ** 30,
+                             step_gib=(torch.cuda.max_memory_allocated()
+                                       - base) / 2 ** 30,
+                             cond_gib=size[way] / 2 ** 30)
+    out.update(
+        stage0_ms={k: v for k, v in stage0.items()},
+        step_device_ms={k: [p["device_ms"] for p in v]
+                        for k, v in step.items()},
+        step_wall_under_profiler_ms={k: [p["wall_ms"] for p in v]
+                                     for k, v in step.items()},
+        step_kernels_ms={k: v[0]["ms"] for k, v in step.items()},
+        step_event_ms=events, memory=peak, eps_rel_err_vs_f32=err)
+    print("precontract A/B, B=8 N=4096 bf16:", json.dumps(out))
+    del pre
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_path(name, counts, paths, unused=(), float32=False):
@@ -1394,17 +1769,20 @@ def main() -> int:
 
     res, checked = check_kernels(dev)
     check_gradients(dev)
-    tiny_parity(dev)
+    tiny_pre_err = tiny_parity(dev)
     tiny_training(dev)
     record_shapes()
     pc2, pvd, merge = production_models(SEED)
     fwd = forwards(pc2, merge, dev)
-    blend, blend_wall = sampler_path(
+    blend, blend_wall, blend_cloud = sampler_path(
         "BDM-B", partial(bdm_blending, pc2, pvd),
         [50, 48, 46, 44, 6, 4, 2, 0], 1, dev)
-    merged, merge_wall = sampler_path(
+    merged, merge_wall, _ = sampler_path(
         "BDM-M", partial(bdm_merging, merge, pc2, pvd),
         [50, 46, 42, 38, 12, 8, 4, 0], 2, dev)
+    single = single_model_sampling(pc2, pvd, dev)
+    options = option_steps(dev)
+    pre_ab = precontract_ab(pc2, pvd, blend_cloud, tiny_pre_err, dev)
     del pc2, pvd
     torch.cuda.empty_cache()
     train = {"pc2_f32": pc2_training(dev, "no"),
@@ -1416,6 +1794,9 @@ def main() -> int:
                    **{k: v["launches"] for k, v in train.items()})
 
     by_path.update({k: v["launches"] for k, v in fwd.items()})
+    by_path.update({k: v["launches"] for k, v in single.items()})
+    by_path.update({f"option_{k}": v["launches"] for k, v in options.items()})
+    by_path["bdm_blending_precontract"] = pre_ab["bdm_b"]["launches"]
 
     rows = []
     for name, (mod, source, replaces) in kernels.KERNELS.items():
@@ -1435,6 +1816,12 @@ def main() -> int:
                       "fusion_forward_ms": fwd["fusion_forward"]["ms"],
                       "bdm_b_wall_s": blend_wall,
                       "bdm_m_wall_s": merge_wall,
+                      "sampling_wall_s": {k: v["wall_s"]
+                                          for k, v in single.items()},
+                      "option_step_ms": {k: v["ms"]
+                                         for k, v in options.items()},
+                      "precontract": {k: v for k, v in pre_ab.items()
+                                      if k != "bdm_b"},
                       "training": {k: {m: v[m] for m in v
                                        if m not in ("launches", "losses")}
                                    for k, v in train.items()}}))

@@ -557,3 +557,61 @@ def test_three_nn_fewer_than_three_centres(dev, n, m):
     if m < 3:
         i, _ = k_tnn.three_nn(x, c)
         assert (i[..., 2] == i[..., m - 1]).all()
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scatter_mean_precontract_width(dev, in_dtype):
+    """The precontracted stage-0 conv's tap scatter: C 864 (27 taps of 32
+    outputs), float32 out, R 32, N 4096; equal to the CPU's plain version
+    bit for bit, through `scatter_mean_contributions`."""
+    x = _cloud(dev, 2, 4096, 3, seed=864) * 0.3
+    ctx = ops.make_voxel_context(x, 32)
+    f = _cloud(dev, 2, 4096, 864, seed=865).to(in_dtype)
+    assert k_vox.kernel_path(in_dtype, torch.float32, 864) == (4, 32)
+    got = ops.scatter_mean_contributions(f, ctx, 32)
+    cpu = ops.VoxelContext(*(t.cpu() for t in ctx))
+    want = ops.scatter_mean_contributions(f.cpu(), cpu, 32)
+    assert got.dtype == torch.float32 and got.shape == (2, 32 ** 3, 864)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cin", [391, 392, 774, 67])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_new_stage0_widths(dev, dtype, cin):
+    """Stage 0's first conv at the widths of the options: mask (391), mask
+    and distance transform (392), global ViT features (774), PVCNN2++
+    (67); Cout 32, R 32, against the plain version."""
+    x = _cloud(dev, 2, 32, 32, 32, cin, seed=cin).to(dtype)
+    w = _cloud(dev, 32, cin, 3, 3, 3, seed=cin + 1) * (27 * cin) ** -0.5
+    b = _cloud(dev, 32, seed=cin + 2) * 0.1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel(k_conv.conv3d(x, w, b), k_conv.conv3d_plain(x, w, b)) <= tol
+
+
+def test_precontracted_denoise_on_the_card(dev):
+    """One float32 PC2 denoise at production widths (ViT-S/16, 390 input
+    channels), B 2, N 4096, through the precontracted stage-0 conv and
+    through the plain one, both on the card: within 1e-4 of the largest
+    output (a float32 sum over 390 channels taken in another order)."""
+    from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig
+    from bdm_tpu_torch.tools.standins import camera
+    pc2 = PC2Model(ProjectionConfig(precontract=True))
+    pc2.reset_parameters(0)
+    with torch.no_grad():
+        head = pc2.backbone.classifier[2].weight
+        head.copy_(_cloud(dev, *head.shape, seed=5) * 0.1)
+    g = torch.Generator().manual_seed(1)
+    image = torch.rand(2, 224, 224, 3, generator=g).to(dev)
+    x = (torch.randn(2, 4096, 3, generator=g) * 0.3).to(dev)
+    t = torch.tensor([500, 20], device=dev)
+    cam = camera(2, dev)
+    with torch.inference_mode():
+        raw = pc2.conditioning_map(image)
+        pre = pc2.maybe_precontract(raw)
+        kernels.reset_counts()
+        got = pc2.denoise(x, t, cam, pre)
+        want = pc2.denoise(x, t, cam, pc2.prepare_cond(raw))
+    assert kernels.counts()["scatter_mean"][1] == 0
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4

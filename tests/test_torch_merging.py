@@ -269,6 +269,29 @@ def test_bdm_merging_tiny_matches_jax(world, scheduler):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
+def test_bdm_merging_precontract_matches_jax(world):
+    """BDM-Merging with `precontract` on PC2: its windows and rolls take
+    the precontracted conditioning, the fusion step the raw map (as
+    `bdm_tpu/samplers/merging.py:207`); DDPM, 8 steps, JAX keys replayed:
+    within 1e-3."""
+    jpc2 = JaxPC2(JaxCfg(**CFG, precontract=True), **TINY)
+    pc2 = PC2Model(ProjectionConfig(**CFG, precontract=True), TINY_SA,
+                   TINY_FP, device="cpu")
+    pc2.load_state_dict(world.pc2.state_dict())
+    assert pc2.precontract_enabled
+    milestones, roll, steps = [8, 6, 4, 2, 0], 2, 8
+    key = jax.random.PRNGKey(6)
+    want = np.asarray(jax_merging(
+        world.jmerge, world.merge_params, jpc2, world.pc2_params,
+        world.jpvd, world.pvd_params, world.jax_batch(), key, num_points=N,
+        milestones=milestones, roll_step=roll, num_inference_steps=steps))
+    got = bdm_merging(world.merge, pc2, world.pvd, world.torch_batch(),
+                      num_points=N, milestones=milestones, roll_step=roll,
+                      noise=JaxKeyNoise(key, len(milestones) - 1),
+                      num_inference_steps=steps).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
 def test_bdm_blending_ddim_matches_jax(world):
     """The DDIM milestone mapping inside BDM-Blending: recon in the
     8-step DDIM space, the prior 16 steps from int(m / 64 * 1000)."""

@@ -90,7 +90,7 @@ def test_ddpm_step(steps):
 
 
 def test_gaussian_p_sample():
-    betas = port_pvd_betas(1e-4, 2e-2, 1000)
+    betas = port_pvd_betas("linear", 1e-4, 2e-2, 1000)
     np.testing.assert_array_equal(betas,
                                   pvd_betas("linear", 1e-4, 2e-2, 1000))
     jg = JaxGaussian(pvd_betas("linear", 1e-4, 2e-2, 1000))
