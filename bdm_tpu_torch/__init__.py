@@ -3,7 +3,9 @@
 The second package beside `bdm_tpu` (the JAX reference, which stays
 unchanged). Same layout: `ops/` (point ops; the TPU kernels of the ported
 paths as hand-written CUDA kernels in `ops/cuda/`, sources in `csrc/`),
-`models/`, `diffusion/`, `conditioning/`, `samplers/`, `train/`, `utils/`.
+`models/`, `diffusion/`, `conditioning/`, `samplers/`, `train/`, `utils/`,
+`config/`, `data/`, `evaluation/`, `native/`, and the command lines
+`main`, `main_blending` and `main_merging` (`cli.py`).
 
 Activations are channel-last (B, N, C) at every public function, as in
 `bdm_tpu`; modules keep the reference checkpoints' state_dict keys. This

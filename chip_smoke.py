@@ -3,8 +3,8 @@
 check each against its plain PyTorch version, forward and backward, then
 run the port's paths at full model width: BDM-Blending and BDM-Merging
 sampling, PC2 and PVD sampling, PC2's conditioning options and backbones,
-the precontracted stage-0 conv, and training of PC2, PVD and the fusion
-network.
+the precontracted stage-0 conv, training of PC2, PVD and the fusion
+network, and the three command-line entry points with the evaluation CLI.
 
     python3 chip_smoke.py
 
@@ -86,13 +86,28 @@ Phases, in the order they run (any failure exits non-zero):
      first two agree, the third differs;
   h. PVD training at `width_multiplier=2`, B=4, N=2048, float32, two
      steps (its 512 -> 512 conv at R=8), then one training step of the
-     fusion network at production widths, B=2, bf16, both towers frozen.
-In c, e, g, h, i, j and k every kernel of the path must have launched and
-no plain version may have run on the card (the simple backbone of j:
-none may launch); on the bfloat16 paths (b, c, e, i, j, k, bf16 g, the
+     fusion network at production widths, B=2, bf16, both towers frozen;
+  l. the CLIs as a user runs them, in a temporary directory, synthetic
+     data, production widths, B=2, N=4096, bf16 (the config's default),
+     random weights from `run.seed` (no checkpoint file but those the runs
+     write): `bdm_tpu_torch.main_blending` (BDM-B, 50 DDPM steps, phase c's
+     milestones); `main_merging` fusion training for 2 steps, then BDM-M
+     sampling from its `checkpoint-latest.pt` (phase e's milestones);
+     `main` PC2 training for 2 steps (EMA, one validation loss), then DDPM
+     50-step sampling from that checkpoint's EMA weights. Each run's wall,
+     and that of its parts (model builds, dataset, batch moves, sampler or
+     training loop, `.ply` writes); every sampling run wrote 2 finite pred
+     clouds and 2 gt clouds. Then the evaluation CLI on the card on the
+     BDM-B clouds, held to `evaluate_dirs(..., device="cpu")` (CD x1000
+     within rtol 1e-4, F1 within 1/N), and CD, F1 and EMD timed at the
+     eval CLI's default batch, 16 pairs of 4,096 points, with their peak
+     memory.
+In c, e, g, h, i, j, k and l every kernel of the path must have launched
+and no plain version may have run on the card (the simple backbone of j:
+none may launch); on the bfloat16 paths (b, c, e, i, j, k, l, bf16 g, the
 fusion step of h) every launch of attention and conv3d must have taken
 the tensor-core kernel, on the float32 paths the CUDA-core one. In the
-phases at production widths (b, c, e, i, j, k, g, h) every launch of the
+phases at production widths (b, c, e, i, j, k, g, h, l) every launch of the
 kernels whose shapes follow the model's widths (conv3d, attention,
 scatter_mean) notes its shape; the run fails if a path gave a kernel a
 shape that phase a did not hold against the plain version.
@@ -1743,6 +1758,212 @@ def wide_and_fusion_training(merge, dev):
     return out
 
 
+# ------------------------------------------------------------ phase l
+
+# Phase l's CLI runs: synthetic data at production widths, B=2, N=4096,
+# bf16 (the config's default), 50 DDPM steps; BDM-B with phase c's
+# milestones, BDM-M with phase e's
+CLI_ARGS = ["dataset=synthetic", "dataset.max_points=4096",
+            "dataloader.batch_size=2", "run.num_sample_batches=1",
+            "run.num_inference_steps=50", "logging.wandb=false"]
+CLI_TRAIN = ["run.print_step_freq=1", "run.log_step_freq=1",
+             "run.checkpoint_freq=2", "run.vis_freq=0"]
+CLI_BLEND = ["aux_run.milestones=[50,48,46,44,6,4,2,0]", "aux_run.roll_step=1"]
+CLI_MERGE = ["aux_run.milestones=[50,46,42,38,12,8,4,0]",
+             "aux_run.roll_step=2"]
+
+
+class PartTimes:
+    """Wall time of named functions of a module while a CLI runs (those the
+    module has): each is wrapped so its calls are timed between
+    `torch.cuda.synchronize()`s; a part called inside another counts in
+    both."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.s = module, names, {}
+
+    def __enter__(self):
+        import torch
+        self.kept = {n: getattr(self.module, n) for n in self.names
+                     if hasattr(self.module, n)}
+        for name, fn in self.kept.items():
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.s[_name] = self.s.get(_name, 0.0) + (
+                    time.perf_counter() - t0)
+                return out
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.kept.items():
+            setattr(self.module, name, fn)
+
+
+def cli_run(name, main, argv, parts, plys=0, unused=()):
+    """One CLI job on the card through `main(argv)`: its wall, the wall of
+    its parts (`parts`: (module, function names)), the kernel launches
+    (`check_path`) and, when it samples, `plys` finite pred clouds of
+    N=4096 beside as many gt clouds. -> (launches, wall s, parts s)."""
+    import torch
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.utils import read_ply
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with PartTimes(*parts) as timer:
+        main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, paths = kernels.counts(), kernels.path_counts()
+    parts_s = {k: round(v, 4) for k, v in timer.s.items()}
+    print(f"{name}: {wall:.2f} s wall; parts {json.dumps(parts_s)}")
+    print("launch counts (kernel, plain on CUDA):", json.dumps(counts),
+          "by kernel:", json.dumps(paths))
+    if plys:
+        opt = dict(a.split("=", 1) for a in argv)
+        run_dir = Path(opt["run.save_dir"]) / opt["run.name"]
+        found = {w: sorted(run_dir.glob(f"*/{w}/*/*.ply"))
+                 for w in ("pred", "gt")}
+        if [len(v) for v in found.values()] != [plys, plys]:
+            fail(f"{name}: {[len(v) for v in found.values()]} pred / gt "
+                 f".ply files, expected {plys} each")
+        for path in found["pred"]:
+            pts = read_ply(str(path))
+            if pts.shape != (4096, 3) or not (pts == pts).all() or (
+                    abs(pts) == float("inf")).any():
+                fail(f"{name}: {path.name} is {pts.shape}, not finite")
+    return check_path(name, counts, paths, unused), wall, parts_s
+
+
+def cli_paths(dev):
+    """Phase l: the three CLIs on the card as a user runs them, in a
+    temporary directory: BDM-B sampling; BDM-M fusion training for 2
+    steps, then sampling from its `checkpoint-latest.pt`; PC2 training for
+    2 steps (EMA every step, one validation loss at step 2), then DDPM
+    sampling from that checkpoint's EMA weights. Then the evaluation CLI
+    on the BDM-B clouds on the card against `evaluate_dirs(...,
+    device="cpu")`, and CD, F1 and EMD timed at the eval CLI's default
+    batch, 16 pairs of 4,096 points, with their peak memory."""
+    import tempfile
+
+    import bdm_tpu_torch.main as pc2_cli
+    import bdm_tpu_torch.main_blending as blend_cli
+    import bdm_tpu_torch.main_merging as merge_cli
+    parts = ("build_pc2", "build_pvd", "build_fusion", "get_dataset",
+             "batch_to_device", "save_batch_outputs")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        common = CLI_ARGS + [f"run.save_dir={tmp}"]
+        out["cli_bdm_blending"] = cli_run(
+            "CLI BDM-B", blend_cli.main,
+            common + CLI_BLEND + ["run.job=sample_bdm_blending",
+                                  "run.name=bdm_b"],
+            (blend_cli, parts + ("bdm_blending",)), plys=2,
+            unused=("scatter_sum",))
+        out["cli_bdm_merging_train"] = cli_run(
+            "CLI BDM-M training", merge_cli.main,
+            common + CLI_TRAIN + ["run.job=training_bdm_merging",
+                                  "run.name=bdm_m", "scheduler=fusion",
+                                  "run.max_fusion_steps=2"],
+            (merge_cli, parts + ("train_loop",)))
+        out["cli_bdm_merging_sample"] = cli_run(
+            "CLI BDM-M", merge_cli.main,
+            common + CLI_MERGE + [
+                "run.job=sample_bdm_merging", "run.name=bdm_m",
+                f"aux_run.fusion_ckpt={tmp}/bdm_m/checkpoint-latest.pt"],
+            (merge_cli, parts + ("bdm_merging",)), plys=2,
+            unused=("scatter_sum",))
+        out["cli_pc2_train"] = cli_run(
+            "CLI PC2 training", pc2_cli.main,
+            common + CLI_TRAIN + ["run.job=train", "run.name=pc2",
+                                  "run.max_steps=2", "ema.use_ema=true",
+                                  "ema.update_every=1", "run.val_freq=2",
+                                  "run.limit_val_batches=1"],
+            (pc2_cli, parts + ("train_loop",)))
+        out["cli_pc2_sample"] = cli_run(
+            "CLI PC2 sample", pc2_cli.main,
+            common + ["run.job=sample", "run.name=pc2",
+                      f"checkpoint.resume={tmp}/pc2/checkpoint-latest.pt",
+                      "run.sample_from_ema=true"],
+            (pc2_cli, parts), plys=2, unused=("scatter_sum",))
+        base = Path(tmp) / "bdm_b" / "sample_bdm_blending"
+        agreement = eval_against_cpu(str(base / "pred" / "chair"),
+                                     str(base / "gt" / "chair"))
+    return out, agreement, eval_timings(dev)
+
+
+def eval_against_cpu(pred, gt):
+    """The eval CLI on the card on the BDM-B clouds, then `evaluate_dirs`
+    on the card against the CPU: CD x1000 within rtol 1e-4, F1 within
+    1/N. -> the values."""
+    from bdm_tpu_torch.evaluation import cli as eval_cli
+    eval_cli.main(["--pred_dir", pred, "--gt_dir", gt])
+    res = {}
+    for metric in ("cd", "f1"):
+        (card, nan_card), (cpu, nan_cpu) = (
+            eval_cli.evaluate_dirs(pred, gt, metric, device=d)
+            for d in (None, "cpu"))
+        if nan_card or nan_cpu or len(card) != 2 or len(cpu) != 2:
+            fail(f"eval {metric}: {card} {nan_card} on the card, {cpu} "
+                 f"{nan_cpu} on the CPU")
+        err = max(abs(a - b) for a, b in zip(card, cpu))
+        tol = (1e-4 * max(abs(b) for b in cpu) if metric == "cd"
+               else 1.0 / 4096)
+        print(f"eval {metric} on the BDM-B clouds: card {card}, CPU {cpu}, "
+              f"max difference {err:.3e} (limit {tol:.3e})")
+        if not err <= tol:
+            fail(f"eval {metric}: the card and the CPU differ by {err}")
+        res[metric] = dict(card=card, cpu=cpu, max_abs_err=err)
+    return res
+
+
+def eval_timings(dev, b=16, n=4096):
+    """CD, F1 and EMD (Sinkhorn, 50 iterations) at the eval CLI's default
+    batch: `b` pairs of `n` points made from a seed on the card; median
+    device time of 5 calls after 2 (CUDA events) and the peak memory
+    above the clouds of one call (each (b, n, n) float32 matrix is
+    b * n * n * 4 bytes); CD within rtol 1e-4 and F1 within 1/N of the
+    CPU's on the same clouds."""
+    import torch
+    from bdm_tpu_torch.evaluation import chamfer_distance, emd_sinkhorn, fscore
+    g = torch.Generator().manual_seed(SEED + 11)
+    pred = (torch.randn(b, n, 3, generator=g) * 0.3).to(dev)
+    gt = (torch.randn(b, n, 3, generator=g) * 0.3 + 0.01).to(dev)
+    calls = {"cd": lambda: chamfer_distance(pred, gt),
+             "f1": lambda: fscore(pred, gt)[0],
+             "emd": lambda: emd_sinkhorn(pred, gt, recenter=True)}
+    out = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        v = call()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        if v.shape != (b,) or not torch.isfinite(v).all():
+            fail(f"eval {name}: {tuple(v.shape)} not finite")
+        ms = timed_ms(call)
+        out[name] = dict(ms=ms, peak_gib=peak)
+        print(f"eval {name} {b} x {n} points: {ms:.3f} ms, peak "
+              f"{peak:.3f} GiB above the clouds, mean {float(v.mean()):.5f}")
+        if name != "emd":   # CD and F1 also against the CPU on these clouds
+            cpu = {"cd": chamfer_distance, "f1": lambda p, q: fscore(p, q)[0]
+                   }[name](pred.cpu(), gt.cpu())
+            err = float((v.cpu() - cpu).abs().max())
+            tol = (1e-4 * float(cpu.abs().max()) if name == "cd"
+                   else 1.0 / n)
+            print(f"eval {name} {b} x {n}: card against CPU max difference "
+                  f"{err:.3e} (limit {tol:.3e})")
+            if not err <= tol:
+                fail(f"eval {name}: the card and the CPU differ by {err}")
+            out[name]["max_abs_err_vs_cpu"] = err
+    return out
+
+
 def main() -> int:
     if not (ROOT / "bdm_tpu_torch").is_dir():
         print("chip_smoke: bdm_tpu_torch is not beside this script",
@@ -1789,9 +2010,13 @@ def main() -> int:
              "pc2_bf16": pc2_training(dev, "bf16")}
     torch.cuda.empty_cache()
     train.update(wide_and_fusion_training(merge, dev))
+    del merge
+    torch.cuda.empty_cache()
+    cli, cli_eval, eval_ms = cli_paths(dev)
     check_shapes_covered(checked)
     by_path = dict(bdm_blending=blend, bdm_merging=merged,
-                   **{k: v["launches"] for k, v in train.items()})
+                   **{k: v["launches"] for k, v in train.items()},
+                   **{k: v[0] for k, v in cli.items()})
 
     by_path.update({k: v["launches"] for k, v in fwd.items()})
     by_path.update({k: v["launches"] for k, v in single.items()})
@@ -1824,7 +2049,11 @@ def main() -> int:
                                       if k != "bdm_b"},
                       "training": {k: {m: v[m] for m in v
                                        if m not in ("launches", "losses")}
-                                   for k, v in train.items()}}))
+                                   for k, v in train.items()},
+                      "cli_wall_s": {k: v[1] for k, v in cli.items()},
+                      "cli_parts_s": {k: v[2] for k, v in cli.items()},
+                      "eval_on_bdm_b": cli_eval,
+                      "eval_16x4096": eval_ms}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
