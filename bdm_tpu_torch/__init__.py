@@ -17,14 +17,15 @@ live on the card unless the caller passes `device="cpu"`.
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.3.0"
 
 
-def default_device() -> torch.device:
+def default_device() -> "torch.device":
     """The card. Raises without one: running on the CPU is the caller's
-    explicit choice (`device="cpu"`), never a silent carry-on."""
+    explicit choice (`device="cpu"`), never a silent carry-on. (torch is
+    imported here, not with the package, so `python -m
+    bdm_tpu_torch.bench`'s supervisor starts without it.)"""
+    import torch
     if not torch.cuda.is_available():
         raise RuntimeError(
             "bdm_tpu_torch runs on an NVIDIA GPU and found no CUDA device; "
@@ -32,6 +33,7 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """`None` -> `default_device()`, anything else -> torch.device."""
+    import torch
     return default_device() if device is None else torch.device(device)

@@ -21,8 +21,10 @@ def normalize_coords(coords: torch.Tensor, resolution: int,
                      normalize: bool = True, eps: float = 0.0):
     """(B, N, 3) -> (norm_coords in [0, R-1] float32, vox_coords int32):
     centre on the mean, scale by twice the max point norm, shift by 0.5,
-    scale to voxel units, clamp; ids round half to even."""
-    coords = coords.float()
+    scale to voxel units, clamp; ids round half to even. No gradient
+    flows back into `coords` (the JAX function stops it: the coordinates
+    of the colouring model's blocks come from its parameters)."""
+    coords = coords.detach().float()
     centered = coords - coords.mean(dim=1, keepdim=True)
     if normalize:
         c = centered

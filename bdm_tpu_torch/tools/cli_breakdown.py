@@ -26,13 +26,13 @@ import time
 import torch
 
 import bdm_tpu_torch.main_blending as blend_cli
+from bdm_tpu_torch.bench import smi_line
 from bdm_tpu_torch.cli import build_pc2, build_pvd, resolve_milestones
 from bdm_tpu_torch.config import parse_cli
 from bdm_tpu_torch.data import batch_to_device, get_dataset
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.samplers import NoiseProvider, bdm_blending
-from chip_smoke import (CLI_ARGS, CLI_BLEND, PartTimes,   # run from the root
-                        smi_line)
+from chip_smoke import CLI_ARGS, CLI_BLEND, PartTimes   # run from the root
 
 
 class GcPauses:

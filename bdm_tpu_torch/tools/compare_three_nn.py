@@ -26,8 +26,9 @@ from pathlib import Path
 import torch
 
 from bdm_tpu_torch import ops
+from bdm_tpu_torch.bench import smi_line
 from bdm_tpu_torch.ops.cuda import _lib, fps, three_nn
-from chip_smoke import smi_line, timed_ms   # run from the repository root
+from chip_smoke import timed_ms   # run from the repository root
 
 SHAPES = [(4096, 1024), (1024, 256), (256, 64), (64, 16), (2048, 1024)]
 

@@ -232,6 +232,36 @@ def pc2_state_dict(params: Dict, specs: Optional[PVCNN2Specs],
     return out
 
 
+def coloring_state_dict(params: Dict, specs: PVCNN2Specs
+                        ) -> Dict[str, np.ndarray]:
+    """JAX colouring params {'feature_model', 'point_cloud_model'} (or a
+    gradient tree of them) -> the port's keys, the JAX module names
+    (`point_cloud_model.input_projection`, `.block{i}.norm0`, `.pvcnn.*`
+    with the reference PVCNN2 keys, `.norm2`, `.mlp_fc1`, `.mlp_fc2`,
+    `.output_projection`; `feature_model.model.*`); `specs` are the
+    blocks' inner PVCNN2's. The reference has no colouring checkpoint
+    layout."""
+    pcm = params["point_cloud_model"]
+    p, pre = pcm.get("params", pcm), "point_cloud_model"
+    out: Dict[str, np.ndarray] = {}
+    _dense(out, f"{pre}.input_projection", p["input_projection"])
+    i = 0
+    while f"block{i}" in p:
+        blk, b = p[f"block{i}"], f"{pre}.block{i}"
+        _norm(out, f"{b}.norm0", blk["norm0"])
+        out.update(pvcnn2_state_dict(blk["pvcnn"], specs, f"{b}.pvcnn"))
+        _norm(out, f"{b}.norm2", blk["norm2"])
+        _dense(out, f"{b}.mlp_fc1", blk["mlp_fc1"])
+        _dense(out, f"{b}.mlp_fc2", blk["mlp_fc2"])
+        i += 1
+    _dense(out, f"{pre}.output_projection", p["output_projection"])
+    fm = params.get("feature_model", {})
+    fm = fm.get("params", fm)
+    if "vit" in fm:
+        out.update(vit_state_dict(fm["vit"], "feature_model.model"))
+    return out
+
+
 def pvd_state_dict(params: Dict, specs: PVCNN2Specs) -> Dict[str, np.ndarray]:
     """JAX PVD backbone params -> the reference PVD keys (`model.*`)."""
     return pvcnn2_state_dict(params, specs, "model")

@@ -4,7 +4,8 @@ check each against its plain PyTorch version, forward and backward, then
 run the port's paths at full model width: BDM-Blending and BDM-Merging
 sampling, PC2 and PVD sampling, PC2's conditioning options and backbones,
 the precontracted stage-0 conv, training of PC2, PVD and the fusion
-network, and the three command-line entry points with the evaluation CLI.
+network, the three command-line entry points with the evaluation CLI, the
+colouring model and the bench's quick run.
 
     python3 chip_smoke.py
 
@@ -101,14 +102,25 @@ Phases, in the order they run (any failure exits non-zero):
      BDM-B clouds, held to `evaluate_dirs(..., device="cpu")` (CD x1000
      within rtol 1e-4, F1 within 1/N), and CD, F1 and EMD timed at the
      eval CLI's default batch, 16 pairs of 4,096 points, with their peak
-     memory.
-In c, e, g, h, i, j, k and l every kernel of the path must have launched
+     memory;
+  m. the colouring model: tiny, on the card against the CPU (`predict`
+     within 1e-4, the loss within 1e-4 relative; run after f, before the
+     shapes of the paths are noted); at full width (ViT-S/16
+     at 224 px, embedding 64, one block), B=8, N=4096, `predict` at
+     mixed_precision bf16 and "no" (its backbone is float32 either way:
+     the same colours within 1e-5), each timed on the host clock (median
+     of 3 after a warm-up) with its peak memory, and two training steps
+     through `train_loop`; then `python -m bdm_tpu_torch.bench --quick`
+     as a subprocess (rc 0, one JSON line, `value` > 0, the launches of
+     its timed batches from its stderr).
+In c, e, g, h, i, j, k, l and m every kernel of the path must have launched
 and no plain version may have run on the card (the simple backbone of j:
 none may launch); on the bfloat16 paths (b, c, e, i, j, k, l, bf16 g, the
-fusion step of h) every launch of attention and conv3d must have taken
-the tensor-core kernel, on the float32 paths the CUDA-core one. In the
-phases at production widths (b, c, e, i, j, k, g, h, l) every launch of the
-kernels whose shapes follow the model's widths (conv3d, attention,
+fusion step of h, the bench's quick run) every launch of attention and
+conv3d must have taken the tensor-core kernel, on the float32 paths (the
+colouring model's whatever its configuration) the CUDA-core one. In the
+phases at production widths (b, c, e, i, j, k, g, h, l, m) every launch of
+the kernels whose shapes follow the model's widths (conv3d, attention,
 scatter_mean) notes its shape; the run fails if a path gave a kernel a
 shape that phase a did not hold against the plain version.
 
@@ -134,13 +146,6 @@ SEED = 0
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def sm_clock_mhz() -> float:
@@ -179,18 +184,19 @@ def timed_ms(fn, reps: int = 5, warmup: int = 2, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
+# The published memory rate of one H100 SXM (NVIDIA's data sheet); its
+# peak dense rates are the bench's `PEAK_FLOPS`.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def bound(tensors, flops: float, kind: str) -> dict:
-    """The least time the card could take: the bytes of `tensors` (each
-    input read once, each output written once) over the memory rate, or
-    `flops` over the peak rate of `kind`, whichever is larger."""
+    """The least time one H100 SXM could take: the bytes of `tensors`
+    (each input read once, each output written once) over the memory
+    rate, or `flops` over the peak rate of `kind`, whichever is larger."""
+    from bdm_tpu_torch.bench import H100, PEAK_FLOPS
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    by_ops = flops / PEAK_FLOPS[H100][kind] * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -243,12 +249,13 @@ TAP_C = 27 * 32
 # Phase a holds conv3d at the convs of PC2, PVD and the fusion network,
 # (Cin, Cout, R); an odd grid (R=9, the TPU's per-slab `conv3d_pallas`);
 # those of PVD at twice the width, the widest of them Cin 512 (the TPU's
-# unpadded `conv3d_mm`)
+# unpadded `conv3d_mm`); the colouring model's stage 0 (64 -> 32, float32)
 CONVS = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
          (64, 64, 16), (192, 128, 8), (128, 128, 8), (256, 256, 8),
          (128, 128, 16), (64, 64, 32), (128, 128, 9),
          (3, 64, 32), (128, 128, 32), (192, 128, 16), (256, 256, 16),
-         (320, 256, 8), (512, 512, 8)] + [(c, 32, 32) for c in STAGE0_CINS]
+         (320, 256, 8), (512, 512, 8), (64, 32, 32)] + [
+             (c, 32, 32) for c in STAGE0_CINS]
 # ... and attention at (S, C): C 64 at the published widths, C 128 (the
 # kernel's widest) in PVD at twice the width
 ATTNS = [(4096, 64), (4096, 128)]
@@ -784,6 +791,8 @@ def check_kernels(dev):
         # the float32 convs that dominate a float32 PC2 step
         f32_390_32_r32=conv_times(390, 32, 32, torch.float32),
         f32_32_32_r32=conv_times(32, 32, 32, torch.float32),
+        # the colouring model's stage-0 conv (its backbone is float32)
+        f32_64_32_r32=conv_times(64, 32, 32, torch.float32),
         bf16_512_512_r8=conv_times(512, 512, 8),
         # stage 0 under the options (bf16): mask, mask + distance
         # transform, global ViT features, PVCNN2++
@@ -1507,25 +1516,15 @@ def check_path(name, counts, paths, unused=(), float32=False):
     """Every kernel launched on the path but those in `unused`, which
     launched no time; no plain version ran on the card; every launch of
     attention and conv3d took the tensor-core kernel (on a float32 path the
-    CUDA-core one: the rule of `kernel_path` names no other shape). -> the
-    launches, those two kernels' also by kernel ("conv3d_tc", ...)."""
-    for kernel, (launches, plain) in counts.items():
-        if (launches <= 0) != (kernel in unused):
-            fail(f"kernel {kernel} launched {launches} times on the {name} "
-                 f"path")
-        if plain != 0:
-            fail(f"plain version of {kernel} ran on the card {plain} times "
-                 f"on the {name} path")
-    out = {k: v[0] for k, v in counts.items()}
-    for kernel, by in paths.items():
-        if by["tc"] + by["simt"] != out[kernel]:
-            fail(f"{kernel} on the {name} path: {by} launches by kernel, "
-                 f"{out[kernel]} in all")
-        if by["tc" if float32 else "simt"] != 0:
-            fail(f"{kernel} on the {name} path launched {by}: the wrong "
-                 f"kernel for a {'float32' if float32 else 'bfloat16'} path")
-        out.update({f"{kernel}_{k}": v for k, v in by.items()})
-    return out
+    CUDA-core one: the rule of `kernel_path` names no other shape), as the
+    bench checks its path (`bench.check_launches`). -> the launches, those
+    two kernels' also by kernel ("conv3d_tc", ...)."""
+    from bdm_tpu_torch.bench import check_launches
+    try:
+        return check_launches(counts, paths, set(counts) - set(unused),
+                              float32)
+    except AssertionError as e:
+        fail(f"the {name} path: {e}")
 
 
 def run_training(name, model, loss_fn, batches, noise, steps):
@@ -1964,6 +1963,192 @@ def eval_timings(dev, b=16, n=4096):
     return out
 
 
+# ------------------------------------------------------------ phase m
+
+def coloring_batches(seed, b, n, dev, image_size=224):
+    """`training_batches` (repeated) with seeded colours in [0, 1]."""
+    import torch
+    from bdm_tpu_torch.tools.standins import training_batches
+    g = torch.Generator().manual_seed(seed + 1)
+    colors = torch.rand(b, n, 3, generator=g).to(dev)
+    for batch in training_batches(seed, b, n, dev, image_size, repeat=True):
+        yield dict(batch, colors=colors)
+
+
+def coloring_model(cfg, dev, sa=None, fp=None):
+    """A colouring model with weights from SEED and a visible head: its
+    output projection N(0, 0.3^2), so the colours are not all 0.5."""
+    import torch
+    from bdm_tpu_torch.models import PointCloudColoringModel
+    blocks = {} if sa is None else {"sa_blocks": sa, "fp_blocks": fp}
+    model = PointCloudColoringModel(cfg, 1, device=dev, **blocks)
+    model.reset_parameters(SEED)
+    with torch.no_grad():
+        w = model.point_cloud_model.output_projection.weight
+        w.copy_(torch.randn(w.shape, generator=torch.Generator()
+                            .manual_seed(SEED + 5)) * 0.3)
+    return model
+
+
+def coloring_tiny(dev):
+    """Phase m, tiny: the colouring model (identity features at image 16,
+    TINY_SA / TINY_FP, embedding 8, a visible head) on the card through
+    the kernels against the same model on the CPU through the plain
+    versions: `predict` within 1e-4 absolute (colours in [0, 1]), the loss
+    at noise_std 0.1 (same noise, eval mode: no dropout) within 1e-4
+    relative."""
+    import dataclasses
+
+    import torch
+    from bdm_tpu_torch.samplers import TrainNoise
+    cfg = dataclasses.replace(tiny_config(), predict_shape=False,
+                              predict_color=True)
+    batch = next(coloring_batches(SEED + 9, 2, 64, "cpu", 16))
+    g = torch.Generator().manual_seed(SEED + 10)
+    draw = (torch.zeros(2, dtype=torch.long), torch.randn(2, 64, 3,
+                                                         generator=g))
+    out, losses = [], []
+    for d in ("cpu", dev):
+        model = coloring_model(cfg, d, TINY_SA, TINY_FP)
+        b = {k: v.to(d) for k, v in batch.items()}
+        out.append(model.predict(b).cpu())
+        noise = TrainNoise(device=d, replay=[draw])
+        with torch.no_grad():
+            losses.append(float(model.loss(b, noise, 0.1)))
+    err = (out[0] - out[1]).abs().max().item()
+    print(f"tiny colouring, kernels vs CPU plain: predict max|err| "
+          f"{err:.3e}, loss {losses[0]} on the CPU, {losses[1]} on the card")
+    if not (torch.isfinite(out[1]).all() and err <= 1e-4
+            and abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])):
+        fail(f"tiny colouring on the card differs from the CPU: predict "
+             f"{err}, losses {losses}")
+    return err
+
+
+def coloring_paths(dev):
+    """Phase m at full width: the colouring model (ViT-S/16 at 224 px,
+    embedding 64, one block), B=8, N=4096. `predict` at
+    mixed_precision bf16 and at "no", host clock around a synchronised
+    call, median of 3 after a warm-up, peak memory; then two training
+    steps through `train_loop` (the ViT frozen). The model is float32
+    whatever the configuration: in the warm-up every floating output of
+    every module is float32, and the two configurations' colours agree
+    within 1e-5, where the same weights rounded to bf16 move them by more
+    than ten times that. Only CUDA-core attention and conv launches, no
+    `interp_mm` (the float32 gather form of the blend) and so no
+    `scatter_sum`. -> {path: {"launches", ...}}."""
+    import torch
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.samplers import ProjectionConfig, TrainNoise
+    from bdm_tpu_torch.train import pc2_freeze_mask
+    b, n, limit = 8, 4096, 1e-5
+    batch = next(coloring_batches(SEED + 12, b, n, dev))
+    unused = ("interp_mm", "scatter_sum")
+    out, colours = {}, []
+    for mp in ("bf16", "no"):
+        name = f"coloring_predict_{mp}"
+        model = coloring_model(ProjectionConfig(
+            predict_shape=False, predict_color=True, mixed_precision=mp), dev)
+        not_f32 = set()
+
+        def note(mod, args, res, where):
+            res = res if isinstance(res, (tuple, list)) else (res,)
+            if any(torch.is_tensor(t) and t.is_floating_point()
+                   and t.dtype != torch.float32 for t in res):
+                not_f32.add(where)
+
+        hooks = [m.register_forward_hook(partial(note, where=k))
+                 for k, m in model.named_modules()]
+        times, rgb = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(4):
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            rgb.append(model.predict(batch))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                for h in hooks:
+                    h.remove()
+        if not_f32:
+            fail(f"{name}: modules with outputs other than float32: "
+                 f"{sorted(not_f32)}")
+        if rgb[-1].shape != (b, n, 3) or not (
+                torch.isfinite(rgb[-1]).all() and rgb[-1].min() >= 0
+                and rgb[-1].max() <= 1 and rgb[-1].std() > 0.1):
+            fail(f"{name}: colours {tuple(rgb[-1].shape)} not finite and "
+                 f"spread in [0, 1]")
+        again = (rgb[-1] - rgb[-2]).abs().max().item()
+        colours.append(rgb[-1])
+        ms = statistics.median(times[1:]) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = check_path(name, kernels.counts(), kernels.path_counts(),
+                              unused, float32=True)
+        print(f"{name} B={b} N={n}: {ms:.2f} ms (median of 3 after "
+              f"warm-up), peak memory {peak:.3f} GiB; colours std "
+              f"{rgb[-1].std().item():.4f}, two calls max|diff| "
+              f"{again:.3e}; launches {json.dumps(launches)}")
+        out[name] = dict(ms=ms, peak_gib=peak, launches=launches)
+        del rgb
+    diff = (colours[0] - colours[1]).abs().max().item()
+    params = list(model.parameters())
+    with torch.no_grad():
+        kept = [p.clone() for p in params]
+        for p in params:
+            p.copy_(p.bfloat16().float())
+        moved = (model.predict(batch) - colours[1]).abs().max().item()
+        for p, k in zip(params, kept):
+            p.copy_(k)
+    print(f"colouring predict, bf16 configuration vs float32: max|diff| "
+          f"{diff:.3e} (limit {limit}); the weights rounded to bf16 move "
+          f"the colours by {moved:.3e}")
+    if not diff <= limit:
+        fail(f"the colouring model is not float32 under bf16: {diff}")
+    if not moved > 10 * limit:
+        fail(f"the bf16 check cannot see a bf16 model: rounding moved the "
+             f"colours by {moved} only")
+    del colours, kept
+    pc2_freeze_mask(model)
+    counts, losses, ms, peak, _ = run_training(
+        "coloring training", model, model.loss,
+        coloring_batches(SEED + 13, b, n, dev), TrainNoise(SEED, device=dev),
+        2)
+    out["coloring_train"] = dict(
+        step_ms=ms, peak_gib=peak,
+        launches=check_path("coloring training", *counts, unused,
+                            float32=True))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_quick():
+    """Phase m, the bench reduced: `python -m bdm_tpu_torch.bench --quick`
+    (bf16, on the card, its kernel self-check at production shapes) as a
+    user runs it: rc 0, one JSON line with `value` > 0. -> (the line, the
+    launches of its timed batches, read from its stderr)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bdm_tpu_torch.bench",
+                           "--quick"], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.strip().startswith("{")]
+    tail = proc.stderr[-3000:]
+    if proc.returncode != 0 or len(lines) != 1 or not lines[0]["value"] > 0:
+        fail(f"bench --quick: rc {proc.returncode}, stdout {proc.stdout!r}, "
+             f"stderr ...{tail}")
+    marks = [x for x in proc.stderr.splitlines()
+             if x.startswith("bench launches: ")]
+    if len(marks) != 1:
+        fail(f"bench --quick printed no launch counts: ...{tail}")
+    launches = json.loads(marks[0][len("bench launches: "):])
+    print(f"bench --quick: {json.dumps(lines[0])} in "
+          f"{time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}")
+    return lines[0], launches
+
+
 def main() -> int:
     if not (ROOT / "bdm_tpu_torch").is_dir():
         print("chip_smoke: bdm_tpu_torch is not beside this script",
@@ -1977,6 +2162,7 @@ def main() -> int:
     # the plain versions serve as references: no TF32 in them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from bdm_tpu_torch.bench import smi_line
     from bdm_tpu_torch.ops import cuda as kernels
     from bdm_tpu_torch.samplers import bdm_blending, bdm_merging
     from bdm_tpu_torch.tools.standins import production_models
@@ -1992,6 +2178,7 @@ def main() -> int:
     check_gradients(dev)
     tiny_pre_err = tiny_parity(dev)
     tiny_training(dev)
+    tiny_coloring_err = coloring_tiny(dev)
     record_shapes()
     pc2, pvd, merge = production_models(SEED)
     fwd = forwards(pc2, merge, dev)
@@ -2013,6 +2200,8 @@ def main() -> int:
     del merge
     torch.cuda.empty_cache()
     cli, cli_eval, eval_ms = cli_paths(dev)
+    coloring = coloring_paths(dev)
+    quick_line, quick_launches = bench_quick()
     check_shapes_covered(checked)
     by_path = dict(bdm_blending=blend, bdm_merging=merged,
                    **{k: v["launches"] for k, v in train.items()},
@@ -2022,6 +2211,8 @@ def main() -> int:
     by_path.update({k: v["launches"] for k, v in single.items()})
     by_path.update({f"option_{k}": v["launches"] for k, v in options.items()})
     by_path["bdm_blending_precontract"] = pre_ab["bdm_b"]["launches"]
+    by_path.update({k: v["launches"] for k, v in coloring.items()})
+    by_path["bench_quick"] = quick_launches
 
     rows = []
     for name, (mod, source, replaces) in kernels.KERNELS.items():
@@ -2053,7 +2244,11 @@ def main() -> int:
                       "cli_wall_s": {k: v[1] for k, v in cli.items()},
                       "cli_parts_s": {k: v[2] for k, v in cli.items()},
                       "eval_on_bdm_b": cli_eval,
-                      "eval_16x4096": eval_ms}))
+                      "eval_16x4096": eval_ms,
+                      "coloring": {k: {m: v[m] for m in v if m != "launches"}
+                                   for k, v in coloring.items()},
+                      "coloring_tiny_max_abs_err": tiny_coloring_err,
+                      "bench_quick": quick_line}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
