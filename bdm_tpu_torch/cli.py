@@ -2,6 +2,11 @@
 building, checkpoint wiring, the sampling jobs' noise and the sampling
 output layout. Used by main.py / main_blending.py / main_merging.py.
 
+Under `torchrun` (`WORLD_SIZE` in the environment) each rank joins the
+process group (`parallel.init_distributed`): the train jobs split each
+batch over the ranks `parallel.batch_group` names, and only rank 0 writes
+checkpoints, logs and `.ply` files; a sampling job runs on rank 0.
+
 Checkpoints are the port's `.pt` files: a train checkpoint of
 `train/checkpoint.py` ({"model", "optimizer", "step", "best_val"[,
 "ema"]}) or a bare `state_dict` under the reference keys.
@@ -18,8 +23,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from bdm_tpu_torch import resolve_device
 from bdm_tpu_torch.config import ProjectConfig
+from bdm_tpu_torch.parallel import init_distributed
 from bdm_tpu_torch.samplers import (BDMMergingModel, NoiseProvider, PC2Model,
                                     ProjectionConfig, PVDModel)
 from bdm_tpu_torch.utils import write_ply
@@ -57,11 +62,10 @@ def projection_config(cfg: ProjectConfig) -> ProjectionConfig:
 def run_device(cfg: ProjectConfig) -> torch.device:
     """`run.cpu=True` is the CPU (the reference's
     `Accelerator(cpu=cfg.run.cpu)`, `main.py:41`); otherwise the card, and
-    without one this raises before any work is done."""
-    if cfg.run.cpu:
-        return torch.device("cpu")
+    without one this raises before any work is done. Under a process
+    group the rank joins it and its card is `cuda:LOCAL_RANK`."""
     try:
-        return resolve_device(None)
+        return init_distributed("cpu" if cfg.run.cpu else None)
     except RuntimeError as e:
         raise RuntimeError(f"{e} (on the command line: run.cpu=true)") \
             from None

@@ -6,6 +6,10 @@ goes to the nearest-in-z candidate (a z-buffer scatter-min); a point that
 wins takes the feature of the first pixel it won, all others get zeros.
 `splat="nearest"` lets a point compete only for its nearest pixel centre
 (rounded half to even), under the same z-buffer.
+
+With `group` the points are this rank's shard of a cloud whose point axis
+is split over a process group: the z-buffer is the MIN over the ranks of
+the shards' z-buffers, so every point competes with the whole cloud.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from bdm_tpu_torch.conditioning.cameras import PerspectiveCamera
 
@@ -59,7 +64,7 @@ def _window_candidates(x_pix, y_pix, z, s: int, radius: float):
 def surface_projection(points: torch.Tensor, camera: PerspectiveCamera,
                        feature_map: torch.Tensor, radius: float = 0.0075,
                        scale_factor: float = 1.0,
-                       splat: str = "multi") -> torch.Tensor:
+                       splat: str = "multi", group=None) -> torch.Tensor:
     """points (B, N, 3); feature_map (B, H, W, C) or pre-flattened
     (B, H*W, C), square -> (B, N, C) in the map's dtype."""
     b, n, _ = points.shape
@@ -88,6 +93,8 @@ def surface_projection(points: torch.Tensor, camera: PerspectiveCamera,
     zbuf = torch.full((b, s * s + 1), _INF, dtype=z.dtype, device=z.device)
     zbuf.scatter_reduce_(1, pid.reshape(b, -1), zc.reshape(b, -1), "amin",
                          include_self=True)
+    if group is not None:
+        dist.all_reduce(zbuf, dist.ReduceOp.MIN, group=group)
     winner = torch.gather(zbuf, 1, pid.reshape(b, -1)).reshape(b, n, kk)
     won = valid & (zc <= winner)
     first = torch.argmax(won.to(torch.int32), dim=-1, keepdim=True)

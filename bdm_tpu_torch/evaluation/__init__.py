@@ -5,10 +5,11 @@ generative metrics, and a directory-walking CLI
 
 from bdm_tpu_torch.evaluation.metrics import (
     chamfer_distance,
+    chamfer_distance_sharded,
     emd_sinkhorn,
     fscore,
     pairwise_min_sqdist,
 )
 
-__all__ = ["chamfer_distance", "emd_sinkhorn", "fscore",
-           "pairwise_min_sqdist"]
+__all__ = ["chamfer_distance", "chamfer_distance_sharded", "emd_sinkhorn",
+           "fscore", "pairwise_min_sqdist"]

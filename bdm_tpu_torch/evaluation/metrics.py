@@ -19,6 +19,7 @@ Plain PyTorch: at K = 3 there is no kernel to write.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def _recenter(x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +70,27 @@ def fscore(pred: torch.Tensor, gt: torch.Tensor, threshold: float = 0.01,
     recall = (d_gp < threshold).float().mean(dim=1)
     f1 = 2.0 * precision * recall / torch.clamp_min(precision + recall, 1e-8)
     return f1, precision, recall
+
+
+def chamfer_distance_sharded(pred: torch.Tensor, gt: torch.Tensor, group,
+                             recenter: bool = True) -> torch.Tensor:
+    """`chamfer_distance` with the `pred` point axis sharded over the ranks
+    of a process group: each rank holds its N/P of `pred` and all of `gt`
+    -> (B,) on every rank, equal to `chamfer_distance` of the whole. The
+    pred -> gt direction is a SUM of the shards' sums, the gt -> pred
+    direction a MIN of the shards' minima; recentring takes the mean of
+    the whole `pred` from a SUM of the shards' sums."""
+    pred = pred.float()
+    n = pred.shape[1] * dist.get_world_size(group)
+    if recenter:
+        s = pred.sum(dim=1, keepdim=True)
+        dist.all_reduce(s, group=group)
+        pred, gt = pred - s / n, _recenter(gt)
+    d_pg, d_gp = pairwise_min_sqdist(pred, gt)
+    pg_sum = d_pg.sum(dim=1)
+    dist.all_reduce(pg_sum, group=group)
+    dist.all_reduce(d_gp, dist.ReduceOp.MIN, group=group)
+    return pg_sum / n + d_gp.mean(dim=1)
 
 
 def emd_sinkhorn(pred: torch.Tensor, gt: torch.Tensor, epsilon: float = 0.002,

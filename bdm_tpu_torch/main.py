@@ -11,7 +11,14 @@ CLI:
     python -m bdm_tpu_torch.main run.job=sample \
         checkpoint.resume=<save_dir>/<name>/checkpoint-latest.pt ...
 
-Training runs on one device (`run.cpu=true`: the CPU).
+Training runs on one device (`run.cpu=true`: the CPU), or data parallel
+over the ranks `torchrun` starts, a card each:
+
+    torchrun --nproc_per_node=8 -m bdm_tpu_torch.main run.job=train ...
+
+Each rank takes its rows of every global batch of `dataloader.batch_size`
+(`parallel.batch_group`: the largest divisor of the batch that is at most
+the world size; the other ranks idle); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bdm_tpu_torch.cli import (build_pc2, ema_weights, make_noise,
                                run_device, sample_output_dirs,
@@ -30,6 +38,8 @@ from bdm_tpu_torch.cli import (build_pc2, ema_weights, make_noise,
 from bdm_tpu_torch.config import ProjectConfig, parse_cli
 from bdm_tpu_torch.config.structured import to_dict
 from bdm_tpu_torch.data import batch_to_device, get_dataset
+from bdm_tpu_torch.parallel import (ShardedNoise, batch_group, is_main,
+                                    replicate, shard_batch)
 from bdm_tpu_torch.samplers import NoiseProvider, TrainNoise
 from bdm_tpu_torch.train import (MetricLogger, create_train_state,
                                  make_lr_schedule, make_optimizer,
@@ -42,12 +52,19 @@ from bdm_tpu_torch.utils.vis import (WandbLogger, render_evolution,
 
 def train(cfg: ProjectConfig) -> None:
     device = run_device(cfg)
+    group, rank, n = batch_group(cfg.dataloader.batch_size)
+    if rank is None:
+        print(f"no shard of a batch of {cfg.dataloader.batch_size} for this "
+              f"rank: the data-parallel group is the first {n} rank(s)")
+        return
     pc2 = build_pc2(cfg, cfg.checkpoint.resume if not
                     cfg.checkpoint.resume_training else None)
+    if group is not None:
+        replicate(pc2, group)
     loader_train, loader_val, _ = get_dataset(cfg)
     # `lr = batch_size * base_lr` when scale_learning_rate_with_batch_size
-    # (reference `training_utils.py:34-37`; one process, so no
-    # num_processes factor)
+    # (reference `training_utils.py:34-37`; the batch is the global one,
+    # so no num_processes factor)
     lr = cfg.optimizer.lr
     if cfg.optimizer.scale_learning_rate_with_batch_size:
         lr = cfg.dataloader.batch_size * lr
@@ -86,9 +103,12 @@ def train(cfg: ProjectConfig) -> None:
 
     ckpt_dir = f"{cfg.run.save_dir}/{cfg.run.name}"
     os.makedirs(ckpt_dir, exist_ok=True)
-    logger = MetricLogger(jsonl_path=f"{ckpt_dir}/train_log.jsonl")
-    wandb_logger = WandbLogger(cfg.logging.wandb, cfg.logging.wandb_project,
-                               cfg.run.name, config=to_dict(cfg))
+    rank0 = is_main()
+    logger = MetricLogger(jsonl_path=f"{ckpt_dir}/train_log.jsonl"
+                          if rank0 else None)
+    wandb_logger = WandbLogger(cfg.logging.wandb and rank0,
+                               cfg.logging.wandb_project, cfg.run.name,
+                               config=to_dict(cfg))
 
     def wandb_cb(step, state, metrics):
         if step % cfg.run.log_step_freq == 0:
@@ -98,12 +118,12 @@ def train(cfg: ProjectConfig) -> None:
     callbacks = [wandb_cb]
     if cfg.run.val_freq and cfg.run.val_freq > 0:
         callbacks.append(make_val_callback(cfg, pc2, loader_val, device,
-                                           logger, wandb_logger))
-    if cfg.run.vis_freq and cfg.run.vis_freq > 0:
+                                           logger, wandb_logger, group))
+    if cfg.run.vis_freq and cfg.run.vis_freq > 0 and rank0:
         callbacks.append(make_vis_callback(cfg, pc2, loader_val, device,
                                            ckpt_dir,
                                            wandb_logger=wandb_logger))
-    if cfg.run.vis_before_training:
+    if cfg.run.vis_before_training and rank0:
         # render once before the loop (reference `main.py:132`)
         make_vis_callback(cfg, pc2, loader_val, device, ckpt_dir,
                           force=True)(0, state, {})
@@ -121,32 +141,46 @@ def train(cfg: ProjectConfig) -> None:
         checkpoint_dir=ckpt_dir, checkpoint_freq=cfg.run.checkpoint_freq,
         print_freq=cfg.run.print_step_freq,
         log_step_freq=cfg.run.log_step_freq, logger=logger,
-        callbacks=callbacks)
+        callbacks=callbacks, group=group)
     wandb_logger.finish()
     save_checkpoint(ckpt_dir, state, config=to_dict(cfg))
     print(f"Training done at step {state.step}; checkpoints in {ckpt_dir}")
 
 
 def make_val_callback(cfg: ProjectConfig, pc2, loader_val, device, logger,
-                      wandb_logger):
+                      wandb_logger, group=None):
     """Every `run.val_freq` steps compute the eps-MSE loss on held-out
     batches with the (EMA) weights and log it — the reference's in-loop
     validation (`main.py:286-303`, `run.val_freq` /
     `run.limit_val_batches`). Each batch draws from a fresh
-    `TrainNoise(0)`, so the metric is comparable across evaluations."""
+    `TrainNoise(0)`, so the metric is comparable across evaluations.
+    With a data-parallel `group` each rank takes its rows of every batch
+    and draws (`main.py:150-161` shards them) and the loss is the mean
+    over the ranks, the loss of the whole batch."""
     # limit_val_batches unset -> validate the FULL held-out loader, like
     # the reference's val loop (`main.py:286-303` iterates dataloader_val)
     limit = cfg.run.limit_val_batches
     val_batches = [batch_to_device(b, device) for b in itertools.islice(
         loader_val, limit)]
+    rank, n = 0, 1
+    if group is not None:
+        rank, n = dist.get_rank(group), dist.get_world_size(group)
+        val_batches = [shard_batch(b, rank, n) for b in val_batches]
     print(f"val callback: {len(val_batches)} batch(es) per eval")
+
+    def batch_loss(model, batch):
+        loss = model.loss(batch, ShardedNoise(TrainNoise(0, device), rank,
+                                              n))
+        if group is not None:
+            dist.all_reduce(loss, group=group)
+            loss /= n
+        return float(loss)
 
     def val_cb(step, state, metrics):
         if step % cfg.run.val_freq != 0 or not val_batches:
             return
         with ema_weights(state) as model, torch.no_grad():
-            losses = [float(model.loss(b, TrainNoise(0, device)))
-                      for b in val_batches]
+            losses = [batch_loss(model, b) for b in val_batches]
         val_loss = float(np.mean(losses))
         logger.update(val_loss=val_loss)
         logger.log_jsonl(step, val_loss=val_loss)
@@ -193,6 +227,8 @@ def make_vis_callback(cfg: ProjectConfig, pc2, loader_val, device, ckpt_dir,
 
 def sample(cfg: ProjectConfig) -> None:
     device = run_device(cfg)
+    if not is_main():
+        return
     pc2 = build_pc2(cfg, cfg.checkpoint.resume,
                     from_ema=cfg.run.sample_from_ema)
     _, loader_val, _ = get_dataset(cfg)

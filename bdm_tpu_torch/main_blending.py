@@ -8,7 +8,7 @@ Rebuild of `experiments/main_blending.py`:
         aux_run.roll_step=16 aux_run.milestones=[1000,968,936,872,128,64,32,0] \
         aux_run.prior_ckpt=<pvd .pt> aux_run.recon_ckpt=<pc2 .pt>
 
-`run.cpu=true` runs it on the CPU.
+`run.cpu=true` runs it on the CPU. Under `torchrun` rank 0 samples.
 """
 
 from __future__ import annotations
@@ -21,11 +21,14 @@ from bdm_tpu_torch.cli import (build_pc2, build_pvd, make_noise,
                                set_seed)
 from bdm_tpu_torch.config import ProjectConfig, parse_cli
 from bdm_tpu_torch.data import batch_to_device, get_dataset
+from bdm_tpu_torch.parallel import is_main
 from bdm_tpu_torch.samplers import bdm_blending
 
 
 def sample_bdm_blending(cfg: ProjectConfig) -> None:
     device = run_device(cfg)
+    if not is_main():
+        return
     recon_ckpt = cfg.aux_run.recon_ckpt or cfg.checkpoint.resume
     # run.sample_from_ema selects the recon checkpoint's EMA weights
     # (reference main_blending.py:148-157)

@@ -11,7 +11,9 @@ Rebuild of `experiments/main_merging.py`:
         aux_run.prior_ckpt=<pvd .pt> aux_run.recon_ckpt=<pc2 .pt> \
         aux_run.fusion_ckpt=<save_dir>/<name>/checkpoint-latest.pt ...
 
-Training runs on one device (`run.cpu=true`: the CPU).
+Training runs on one device (`run.cpu=true`: the CPU), or data parallel
+over the ranks `torchrun` starts (as in `bdm_tpu_torch.main`); sampling
+runs on rank 0.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from bdm_tpu_torch.cli import (build_fusion, build_pc2, build_pvd,
 from bdm_tpu_torch.config import ProjectConfig, parse_cli
 from bdm_tpu_torch.config.structured import to_dict
 from bdm_tpu_torch.data import batch_to_device, get_dataset
+from bdm_tpu_torch.parallel import batch_group, is_main, replicate
 from bdm_tpu_torch.samplers import TrainNoise, bdm_merging
 from bdm_tpu_torch.train import (MetricLogger, create_train_state,
                                  fusion_freeze_mask, make_lr_schedule,
@@ -46,7 +49,14 @@ def training_bdm_merging(cfg: ProjectConfig) -> None:
     """Finetune the fusion decoder (`main_merging.py:242-366`): towers
     frozen, scheduler=fusion (cosine, 200 warmup, max_fusion_steps)."""
     device = run_device(cfg)
+    group, rank, n = batch_group(cfg.dataloader.batch_size)
+    if rank is None:
+        print(f"no shard of a batch of {cfg.dataloader.batch_size} for this "
+              f"rank: the data-parallel group is the first {n} rank(s)")
+        return
     _, _, merge = _build_all(cfg, with_fusion_ckpt=False)
+    if group is not None:
+        replicate(merge, group)
     loader_train, _, _ = get_dataset(cfg)
 
     schedule = make_lr_schedule(
@@ -67,7 +77,8 @@ def training_bdm_merging(cfg: ProjectConfig) -> None:
 
     ckpt_dir = f"{cfg.run.save_dir}/{cfg.run.name}"
     os.makedirs(ckpt_dir, exist_ok=True)
-    logger = MetricLogger(jsonl_path=f"{ckpt_dir}/train_log.jsonl")
+    logger = MetricLogger(jsonl_path=f"{ckpt_dir}/train_log.jsonl"
+                          if is_main() else None)
     state = train_loop(
         state, merge.loss,
         (batch_to_device(b, device) for b in loader_train.infinite()),
@@ -75,7 +86,7 @@ def training_bdm_merging(cfg: ProjectConfig) -> None:
         noise=TrainNoise(cfg.run.seed, device), checkpoint_dir=ckpt_dir,
         checkpoint_freq=cfg.run.checkpoint_freq,
         print_freq=cfg.run.print_step_freq,
-        log_step_freq=cfg.run.log_step_freq, logger=logger)
+        log_step_freq=cfg.run.log_step_freq, logger=logger, group=group)
     save_checkpoint(ckpt_dir, state, config=to_dict(cfg))
     print(f"Fusion training done at step {state.step}; checkpoints in "
           f"{ckpt_dir}")
@@ -83,6 +94,8 @@ def training_bdm_merging(cfg: ProjectConfig) -> None:
 
 def sample_bdm_merging(cfg: ProjectConfig) -> None:
     device = run_device(cfg)
+    if not is_main():
+        return
     pc2, pvd, merge = _build_all(cfg, with_fusion_ckpt=True)
     _, loader_val, _ = get_dataset(cfg)
     milestones = resolve_milestones(cfg)

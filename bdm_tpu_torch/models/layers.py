@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bdm_tpu_torch import ops
+from bdm_tpu_torch.parallel.point_sharded import sharded_mean
 
 GN_EPS = 1e-5  # torch.nn.GroupNorm's default, as in the reference
 
@@ -96,7 +97,13 @@ class Conv1x1(nn.Module):
 class GroupNormCL(nn.Module):
     """GroupNorm over the last (channel) axis of (B, ..., C): statistics
     over every non-batch position and the channels of a group, in float32;
-    the output is cast to `dtype` (default: the input's)."""
+    the output is cast to `dtype` (default: the input's).
+
+    With `group`, x is this rank's shard of a (B, N, ...) tensor whose point
+    axis is split evenly over the ranks of that process group: the
+    statistics are those of the whole, in two passes as the unsharded
+    formula takes them, the mean and then the mean of squared deviations,
+    each a SUM over the ranks (differentiable)."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = GN_EPS):
         super().__init__()
@@ -105,12 +112,17 @@ class GroupNormCL(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None,
+                group=None) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
         g = self.num_groups
         xf = x.float().reshape(b, -1, g, c // g)
-        mean = xf.mean(dim=(1, 3), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+        if group is None:
+            mean = xf.mean(dim=(1, 3), keepdim=True)
+            var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+        else:
+            mean = sharded_mean(xf, group)
+            var = sharded_mean((xf - mean).square(), group)
         y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         y = y * self.weight + self.bias
         return y.to(dtype or x.dtype)
@@ -130,11 +142,12 @@ class SharedMLP(nn.Module):
             cin = oc
         self.layers = nn.ModuleList(mods)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """`group`: x is a point shard (`GroupNormCL`)."""
         dt = self.dtype or torch.float32
         for i in range(0, len(self.layers), 3):
             x = self.layers[i](x, dt)
-            x = swish(self.layers[i + 1](x, dt))
+            x = swish(self.layers[i + 1](x, dt, group))
         return x
 
 

@@ -8,6 +8,15 @@ state_dict loads directly and `bdm_tpu/utils/convert_torch.py` maps it to
 the JAX tree. The timestep embedding is carried as (B, E) and broadcast at
 each concat site in the reference's channel position; FP stages never use
 attention (the reference's shadowed-list check, replicated).
+
+Point-sharded mode (`sp_group`, the JAX package's `sp_mesh`): each level
+of at least `sp_min_points` points is split over the ranks of a process
+group (`parallel.point_sharded`). There the PVConvs build their grid from
+the shards' partial sums and devoxelize at the shard's points, the SA
+module samples, queries and groups across the shards and returns
+replicated centres, the FP module interpolates onto the shard's points,
+and the GroupNorms of point features take the statistics of the whole.
+Levels below the threshold run replicated on every rank.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from bdm_tpu_torch import ops
@@ -24,6 +34,7 @@ from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, Dropout,
                                          GroupNormCL, SharedMLP,
                                          get_timestep_embedding, swish,
                                          timestep_mlp)
+from bdm_tpu_torch.parallel import point_sharded as psh
 
 # (conv_configs, sa_configs) per stage; conv = (out_ch, num_blocks, voxel_res),
 # sa = (num_centers, radius, num_neighbors, mlp_channels)
@@ -185,13 +196,18 @@ class PVConv(nn.Module):
         self.point_features = SharedMLP(cin, (cout,), kdims=1, dtype=dtype)
 
     def forward(self, features: torch.Tensor, ctx: ops.VoxelContext,
-                pre_tap: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pre_tap: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         """With `pre_tap` the first conv takes its precontracted form
-        (`VoxConv.forward_pre_tap`) and skips the voxelization."""
+        (`VoxConv.forward_pre_tap`) and skips the voxelization. With
+        `group` the features are a point shard, `ctx` is the stage's
+        `ShardedVoxelContext` and the grid is replicated."""
         vl = self.voxel_layers
         dt = self.dtype or torch.float32
         r = self.resolution
-        if pre_tap is None:
+        if group is not None:
+            g = vl[0](psh.sharded_voxel_grid(features, ctx, r, group, dt))
+        elif pre_tap is None:
             g = vl[0](ops.avg_voxelize(features, ctx, r, out_dtype=dt))
         else:
             g = vl[0].forward_pre_tap(pre_tap, features[..., :3], ctx, r, dt)
@@ -205,7 +221,7 @@ class PVConv(nn.Module):
         gate = vl[7](g)                                          # (B, C)
         vox = ops.trilinear_devoxelize(g, ctx.norm_coords).to(dt)
         vox = vox * gate[:, None, :].to(dt)
-        return vox + self.point_features(features).to(dt)
+        return vox + self.point_features(features, group).to(dt)
 
 
 class PointNetSA(nn.Module):
@@ -219,14 +235,24 @@ class PointNetSA(nn.Module):
         self.mlps = nn.ModuleList(
             [SharedMLP(cin + 3, spec.mlp, kdims=2, dtype=dtype)])
 
-    def forward(self, features: torch.Tensor, coords: torch.Tensor):
+    def forward(self, features: torch.Tensor, coords: torch.Tensor,
+                group=None):
+        """With `group` the points are a shard; the centres and their
+        features come back replicated."""
         s = self.spec
         dt = self.dtype or torch.float32
-        idx = ops.furthest_point_sample(coords, s.num_centers)
-        centers = ops.gather(coords, idx)                        # (B, M, 3)
-        nbr = ops.ball_query(centers, coords, s.radius, s.num_neighbors)
-        both = ops.grouping(torch.cat([coords.to(dt), features.to(dt)], -1),
-                            nbr)                                 # (B, M, U, .)
+        both = torch.cat([coords.to(dt), features.to(dt)], -1)
+        if group is None:
+            idx = ops.furthest_point_sample(coords, s.num_centers)
+            centers = ops.gather(coords, idx)                    # (B, M, 3)
+            nbr = ops.ball_query(centers, coords, s.radius, s.num_neighbors)
+            both = ops.grouping(both, nbr)                       # (B, M, U, .)
+        else:
+            idx = psh.fps_point_sharded(coords, s.num_centers, group)
+            centers = psh.gather_point_sharded(coords, idx, group)
+            nbr = psh.ball_query_point_sharded(centers, coords, s.radius,
+                                               s.num_neighbors, group)
+            both = psh.grouping_point_sharded(both, nbr, group)
         nbr_feats = torch.cat(
             [both[..., :3] - centers[:, :, None, :].to(dt), both[..., 3:]],
             dim=-1)
@@ -244,7 +270,9 @@ class PointNetFP(nn.Module):
         self.mlp = SharedMLP(cin, mlp, kdims=1, dtype=dtype)
 
     def forward(self, fine_coords, coarse_coords, coarse_features, skip,
-                temb):
+                temb, group=None):
+        """Replicated coarse centres and features; with `group` the fine
+        points (and `skip`) are a shard: the blend is local to it."""
         dt = self.dtype or torch.float32
         f = ops.three_nn_interpolate(fine_coords, coarse_coords,
                                      coarse_features)
@@ -252,7 +280,7 @@ class PointNetFP(nn.Module):
         parts = [f.to(dt), temb[:, None, :].to(dt).expand(-1, n, -1)]
         if skip.shape[-1] > 0:
             parts.append(skip.to(dt))
-        return self.mlp(torch.cat(parts, dim=-1)).to(dt)
+        return self.mlp(torch.cat(parts, dim=-1), group).to(dt)
 
 
 def _stage_parts(layer):
@@ -261,13 +289,16 @@ def _stage_parts(layer):
     return list(layer) if isinstance(layer, nn.Sequential) else [layer]
 
 
-def _voxel_convs(convs, features, coords, pre_tap=None):
+def _voxel_convs(convs, features, coords, pre_tap=None, group=None):
     """Run a stage's PVConvs over one shared voxel context; `pre_tap`
-    serves the first."""
+    serves the first; `group`: the stage's points are a shard."""
     if convs:
-        ctx = ops.make_voxel_context(coords, convs[0].resolution)
+        r = convs[0].resolution
+        ctx = (ops.make_voxel_context(coords, r) if group is None
+               else psh.sharded_voxel_context(coords, r, group))
         for p, conv in enumerate(convs):
-            features = conv(features, ctx, pre_tap if p == 0 else None)
+            features = conv(features, ctx, pre_tap if p == 0 else None,
+                            group)
     return features
 
 
@@ -298,14 +329,25 @@ class PVCNNEncoder:
                                      dtype=dtype) if use_att else None)
 
     def __call__(self, features: torch.Tensor, coords: torch.Tensor,
-                 temb: torch.Tensor, pre_tap: Optional[torch.Tensor] = None):
+                 temb: torch.Tensor, pre_tap: Optional[torch.Tensor] = None,
+                 groups=None):
         """features (B, N, C0), coords (B, N, 3) float32, temb (B, E) ->
         (bottleneck features, its coords, temb, the coords and the input
         features of every stage). `pre_tap`: the precontracted taps of
-        stage 0's first conv (`VoxConv.forward_pre_tap`)."""
+        stage 0's first conv (`VoxConv.forward_pre_tap`).
+
+        `groups` (`PVCNN2.sp_groups`): the process group of each stage's
+        level whose points are sharded over it, None where the level is
+        replicated; the inputs are then this rank's shard, the stage lists
+        hold each level as it ran, and the bottleneck is replicated."""
         dt = self.dtype or torch.float32
         coords_list, skips = [], []
+        groups = groups or [None] * len(self.sa_layers)
         for i, layer in enumerate(self.sa_layers):
+            group = groups[i]
+            if i > 0 and group is not None:   # this rank's replicated centres
+                features = psh.own_rows(features, group)
+                coords = psh.own_rows(coords, group)
             skips.append(features)
             coords_list.append(coords)
             if i == 0:
@@ -316,7 +358,8 @@ class PVCNNEncoder:
                                temb[:, None, :].to(dt).expand(-1, n, -1)], -1)
             *convs, sa = _stage_parts(layer)
             features, coords = sa(_voxel_convs(
-                convs, f, coords, pre_tap if i == 0 else None), coords)
+                convs, f, coords, pre_tap if i == 0 else None, group),
+                coords, group)
         if self.global_att is not None:
             features = self.global_att(features).to(dt)
         return features, coords, temb, coords_list, skips
@@ -347,17 +390,25 @@ class PVCNNDecoder:
             Conv1x1(128, out_channels, 1))
 
     def __call__(self, features: torch.Tensor, coords: torch.Tensor,
-                 temb: torch.Tensor, coords_list, skips) -> torch.Tensor:
+                 temb: torch.Tensor, coords_list, skips,
+                 groups=None) -> torch.Tensor:
         """The encoder's outputs (skips[0] replaced by the caller with the
-        input's extra channels) -> (B, N, out_channels) float32."""
+        input's extra channels) -> (B, N, out_channels) float32. `groups`:
+        the process group of each level whose points are a shard
+        (`PVCNN2.sp_groups`); the output is then the finest level's
+        shard."""
+        groups = groups or [None] * len(coords_list)
         for k, layer in enumerate(self.fp_layers):
             fp, *convs = _stage_parts(layer)
-            fine = coords_list[-1 - k]
-            features = fp(fine, coords, features, skips[-1 - k], temb)
+            fine, group = coords_list[-1 - k], groups[-1 - k]
+            if k > 0 and groups[-k] is not None:    # a sharded coarse level
+                features = psh.all_rows(features, groups[-k])
+                coords = psh.all_rows(coords, groups[-k])
+            features = fp(fine, coords, features, skips[-1 - k], temb, group)
             coords = fine
-            features = _voxel_convs(convs, features, coords)
-        f = self.classifier[1](self.classifier[0](features).float())
-        return self.classifier[2](f, torch.float32)
+            features = _voxel_convs(convs, features, coords, group=group)
+        f = self.classifier[0](features, groups[0]).float()
+        return self.classifier[2](self.classifier[1](f), torch.float32)
 
 
 @torch.no_grad()
@@ -380,7 +431,15 @@ class PVCNN2(nn.Module):
     forward(inputs (B, N, 3 + S), t (B,)) -> (B, N, out_channels) float32.
     Coordinates are the first 3 input channels. The module leaves its
     constructor in `eval()` mode (dropout off); a training step switches
-    to `train()` and back."""
+    to `train()` and back.
+
+    `sp_group`: a process group over whose ranks the point axis of every
+    level of at least `sp_min_points` points is sharded (the module
+    docstring); `inputs` and the output are then this rank's contiguous
+    shard of the points. The network may not be shardable at the input
+    level (too few points, or a precontracted stage 0, which keeps the
+    unsharded path as in the JAX package): it then runs replicated on the
+    whole cloud and returns this rank's rows."""
 
     def __init__(self, out_channels: int = 3, embed_dim: int = 64,
                  extra_feature_channels: int = 3, use_att: bool = True,
@@ -388,9 +447,12 @@ class PVCNN2(nn.Module):
                  classifier_init_scale: Optional[float] = 1e-6,
                  dtype: Optional[torch.dtype] = None, dropout: float = 0.1,
                  width_multiplier: int = 1,
-                 voxel_resolution_multiplier: int = 1):
+                 voxel_resolution_multiplier: int = 1, sp_group=None,
+                 sp_min_points: int = 2048):
         super().__init__()
         self.embed_dim = embed_dim
+        self.sp_group = sp_group
+        self.sp_min_points = sp_min_points
         self.classifier_init_scale = classifier_init_scale
         self.dtype = dtype
         self.specs = build_pvcnn2_specs(
@@ -421,14 +483,34 @@ class PVCNN2(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=g)
                         * self.classifier_init_scale)
 
+    def sp_groups(self, n: int) -> list:
+        """The process group of each stage's level of a cloud of `n` points
+        (None: that level runs replicated)."""
+        counts = [n] + [st.sa.num_centers for st in self.specs.sa_stages[:-1]]
+        return [self.sp_group if psh.sp_active(self.sp_group, c,
+                                               self.sp_min_points) else None
+                for c in counts]
+
     def forward(self, inputs: torch.Tensor, t: torch.Tensor,
                 pre_tap: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`pre_tap` (B, N, 27 * Cout0): stage 0's first conv in its
         precontracted form."""
+        group, groups = self.sp_group, None
+        if group is not None:
+            groups = self.sp_groups(inputs.shape[1]
+                                    * dist.get_world_size(group))
+            if pre_tap is not None or groups[0] is None:
+                pre_tap = (None if pre_tap is None
+                           else psh.all_rows(pre_tap, group))
+                return psh.own_rows(self._forward(
+                    psh.all_rows(inputs, group), t, pre_tap, None), group)
+        return self._forward(inputs, t, pre_tap, groups)
+
+    def _forward(self, inputs, t, pre_tap, groups) -> torch.Tensor:
         temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
         coords = inputs[..., :3].float()
         features = inputs if self.dtype is None else inputs.to(self.dtype)
         feats, ccoords, temb, coords_list, skips = self.encoder(
-            features, coords, temb, pre_tap)
+            features, coords, temb, pre_tap, groups)
         skips[0] = inputs[..., 3:]
-        return self.decoder(feats, ccoords, temb, coords_list, skips)
+        return self.decoder(feats, ccoords, temb, coords_list, skips, groups)

@@ -156,6 +156,7 @@ class ProjectionConditioned(nn.Module):
             for name in ("ddpm", "ddim", "pndm")}
         self.num_train_timesteps = self.schedulers[
             "ddpm"].num_train_timesteps
+        self.sp_group = None    # the points' process group (PC2Model)
 
     @torch.no_grad()
     def conditioning_map(self, image: torch.Tensor,
@@ -222,7 +223,8 @@ class ProjectionConditioned(nn.Module):
         return surface_projection(x_t[..., :3], camera, cond_map,
                                   radius=self.cfg.raster_point_radius,
                                   scale_factor=self.cfg.scale_factor,
-                                  splat=self.cfg.raster_splat)
+                                  splat=self.cfg.raster_splat,
+                                  group=self.sp_group)
 
     def x_t_input(self, x_t: torch.Tensor, camera: PerspectiveCamera,
                   cond: Union[torch.Tensor, Conditioning]) -> torch.Tensor:
@@ -255,13 +257,19 @@ class ProjectionConditioned(nn.Module):
 class PC2Model(ProjectionConditioned):
     """`sa_blocks`, `fp_blocks`, `width_multiplier` and
     `voxel_resolution_multiplier` shape the PVCNN2 backbone (the blocks
-    also PVCNN2++'s inner one)."""
+    also PVCNN2++'s inner one). `sp_group` and `sp_min_points` shard the
+    PVCNN2 backbone's point axis over a process group (`PVCNN2`): the
+    points of `denoise` are then this rank's shard, and the projection
+    takes its z-buffer over the whole cloud. The loss and the sampling
+    loops refuse a sharded model: their draws would be the shard's shape,
+    not this rank's part of the whole cloud's."""
 
     def __init__(self, cfg: ProjectionConfig = ProjectionConfig(),
                  sa_blocks=PVCNN_SA_BLOCKS, fp_blocks=PVCNN_FP_BLOCKS,
                  vit_kwargs: Optional[dict] = None, device=None,
                  dropout: float = 0.1, width_multiplier: int = 1,
-                 voxel_resolution_multiplier: int = 1):
+                 voxel_resolution_multiplier: int = 1, sp_group=None,
+                 sp_min_points: int = 2048):
         device = resolve_device(device)
         super().__init__(cfg, vit_kwargs)
         # backbone mux (`point_cloud_model.py:14-59`)
@@ -274,7 +282,9 @@ class PC2Model(ProjectionConditioned):
                          classifier_init_scale=1e-6, dropout=dropout,
                          width_multiplier=width_multiplier,
                          voxel_resolution_multiplier=(
-                             voxel_resolution_multiplier), **common)
+                             voxel_resolution_multiplier),
+                         sp_group=sp_group, sp_min_points=sp_min_points,
+                         **common)
         elif cfg.point_cloud_model == "simple":
             net = SimplePointModel(**common)
         elif cfg.point_cloud_model == "pvcnnplusplus":
@@ -282,6 +292,10 @@ class PC2Model(ProjectionConditioned):
                                  fp_blocks=fp_blocks, **common)
         else:
             raise NotImplementedError(cfg.point_cloud_model)
+        if sp_group is not None and cfg.point_cloud_model != "pvcnn":
+            raise ValueError("sp_group shards the PVCNN2 backbone only, not "
+                             f"{cfg.point_cloud_model!r}")
+        self.sp_group = sp_group
         self.point_cloud_model = _Holder(net)
         self.precontract_enabled = (
             cfg.precontract and cfg.point_cloud_model == "pvcnn"
@@ -293,6 +307,12 @@ class PC2Model(ProjectionConditioned):
     @property
     def backbone(self) -> nn.Module:
         return self.point_cloud_model.model
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.sp_group is not None:
+            raise NotImplementedError(
+                f"PC2Model.{what} with sp_group: the point-sharded model "
+                "serves denoise")
 
     def reset_parameters(self, seed: int = 0) -> None:
         self.backbone.reset_parameters(seed)
@@ -365,6 +385,7 @@ class PC2Model(ProjectionConditioned):
         "distance_transform" where used}; dropout follows the module's mode
         (`train.make_train_step` switches it on) and takes its masks from
         `noise`."""
+        self._refuse_sharded("loss")
         _, x_in, t, eps = self.noised_batch(batch, noise)
         with dropout_masks(noise):
             eps_hat = self.backbone(x_in, t)
@@ -399,6 +420,7 @@ class PC2Model(ProjectionConditioned):
         after every such segment, (B, S, N, 3). The initial cloud is
         `noise.initial`, step j of segment i draws `noise.step("seg", i, j,
         len(segment), shape)`."""
+        self._refuse_sharded("sample")
         if scheduler == "pndm" and return_sample_every_n_steps > 0:
             raise NotImplementedError(
                 "evolutions are not supported with the pndm scheduler")
@@ -443,6 +465,7 @@ class PC2Model(ProjectionConditioned):
         (`model.py:216-291`) with "ddpm" or "ddim"; `noise(j, n_steps)`
         gives step j's noise. `cond` is built from the batch when not
         given."""
+        self._refuse_sharded("interaction_sample")
         if scheduler == "pndm":
             raise ValueError(
                 "pndm carries multistep state across the whole trajectory "

@@ -6,8 +6,9 @@ AdamW with no-decay groups (`training_utils.py:42-53`), linear / cosine
 warm-up schedules (`config/structured.py:236-263`), gradient clip 50
 (`structured.py:209`), EMA 0.999 every 20 steps (`structured.py:194-198`),
 the NaN-loss hard stop (`main.py:231-234`) and checkpoint / resume with
-`torch.save` under the reference `state_dict` keys. One device: data
-parallel training is not ported.
+`torch.save` under the reference `state_dict` keys. Data parallel over a
+process group: `make_train_step(loss_fn, group)` and `train_loop(...,
+group=...)` (`bdm_tpu_torch.parallel`).
 """
 
 from bdm_tpu_torch.train.checkpoint import (load_params, restore_checkpoint,

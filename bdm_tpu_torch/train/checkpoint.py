@@ -6,6 +6,11 @@ the model under the reference `state_dict` keys, so
 `bdm_tpu/utils/convert_torch.py` reads a saved model. Restore tolerates
 leaving the optimizer state or the step behind
 (`resume_training_optimizer`-style partial resume).
+
+Under a process group only rank 0 writes (data-parallel ranks hold the
+same state). The keys are the model's own, never a `module.` prefix: the
+data-parallel step averages gradients without wrapping the model, so a
+checkpoint written by any number of ranks loads into one process.
 """
 
 from __future__ import annotations
@@ -17,15 +22,19 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from bdm_tpu_torch.parallel.mesh import is_main
 from bdm_tpu_torch.train.state import TrainState
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState,
                     config: Optional[dict] = None,
                     name: str = "checkpoint-latest") -> str:
-    """Save a checkpoint; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Save a checkpoint (rank 0 alone, under a process group); returns
+    its path."""
     path = os.path.abspath(os.path.join(ckpt_dir, name + ".pt"))
+    if not is_main():
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict(),
                "step": state.step, "best_val": state.best_val}

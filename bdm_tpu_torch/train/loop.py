@@ -1,7 +1,7 @@
 """The training loop (`bdm_tpu/train/loop.py`, reference
 `main.py:183-303`): train step, clip and accumulation in the optimizer,
 EMA, periodic checkpoints, the NaN-loss hard stop (`main.py:231-234`) and
-metric logging.
+metric logging, on one process or on the ranks of a data-parallel group.
 """
 
 from __future__ import annotations
@@ -11,7 +11,9 @@ import time
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
+from bdm_tpu_torch.parallel.mesh import is_main, shard_batch
 from bdm_tpu_torch.train.checkpoint import save_checkpoint
 from bdm_tpu_torch.train.metrics import MetricLogger
 from bdm_tpu_torch.train.state import TrainState
@@ -27,6 +29,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _first_bad(first_bad: torch.Tensor, group) -> int:
+    """The first step whose loss was not finite on any rank, or -1."""
+    if group is None:
+        return int(first_bad)
+    never = torch.iinfo(torch.long).max
+    x = torch.where(first_bad < 0, torch.full_like(first_bad, never),
+                    first_bad)
+    dist.all_reduce(x, dist.ReduceOp.MIN, group=group)
+    return -1 if int(x) == never else int(x)
+
+
 def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
                max_steps: int, noise, checkpoint_dir: Optional[str] = None,
                checkpoint_freq: int = 1000, print_freq: int = 100,
@@ -34,7 +47,7 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
                logger: Optional[MetricLogger] = None,
                callbacks: Optional[list] = None,
                profile_dir: Optional[str] = None,
-               profile_steps: tuple = (10, 20)) -> TrainState:
+               profile_steps: tuple = (10, 20), group=None) -> TrainState:
     """Run up to `max_steps` steps over an iterator of model-form batches
     ({"image", "camera", "points"} tensors on the model's device); `noise`
     is the `TrainNoise` every step draws from.
@@ -43,8 +56,19 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
     device-side record of the first step whose loss was not finite is
     updated every step and read at the log cadence, so a NaN raises
     `NaNLossError` naming the step it happened at. With `profile_dir` a
-    `torch.profiler` trace of steps [profile_steps) is written there."""
-    step_fn = make_train_step(loss_fn)
+    `torch.profiler` trace of steps [profile_steps) is written there.
+
+    With `group` (data parallel, `make_train_step`) every rank of it reads
+    the same global batches and the same noise and takes its rows
+    (`parallel.shard_batch`), the record of the first bad step is the
+    least over the ranks, so every rank stops at the same step, and only
+    rank 0 writes checkpoints, logs and prints; callbacks run on every
+    rank."""
+    step_fn = make_train_step(loss_fn, group)
+    shard = ((lambda b: b) if group is None else
+             (lambda b: shard_batch(b, dist.get_rank(group),
+                                    dist.get_world_size(group))))
+    rank0 = is_main()
     logger = logger or MetricLogger()
     callbacks = callbacks or []
     device = next(state.model.parameters()).device
@@ -56,7 +80,7 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
     for batch in data_iter:
         if state.step >= max_steps:
             break
-        metrics = step_fn(state, batch, noise)
+        metrics = step_fn(state, shard(batch), noise)
         step = state.step
         bad = ~torch.isfinite(metrics["loss"]) & (first_bad < 0)
         first_bad = torch.where(bad, torch.full_like(first_bad, step),
@@ -71,29 +95,31 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
                 prof = _stop_profile(prof, profile_dir, device)
 
         if step % log_step_freq == 0 or step == max_steps:
-            bad_step = int(first_bad)
+            bad_step = _first_bad(first_bad, group)
             if bad_step >= 0:
                 # hard stop like the reference (`main.py:231-234`)
                 raise NaNLossError(f"Loss is not finite at step {bad_step}.")
             logger.update(loss=float(metrics["loss"]),
                           grad_norm=float(metrics["grad_norm"]),
                           lr=state.optimizer.learning_rate())
-            logger.log_jsonl(step)
+            if rank0:
+                logger.log_jsonl(step)
 
-        if step % print_freq == 0:
+        if step % print_freq == 0 and rank0:
             rate = (step - start_step) / max(1e-9, time.time() - t_start)
             print(f"step {step}/{max_steps}  {logger}  ({rate:.2f} it/s)")
 
         if checkpoint_dir is not None and step % checkpoint_freq == 0:
-            save_checkpoint(checkpoint_dir, state)
+            save_checkpoint(checkpoint_dir, state)        # rank 0 writes
 
         for cb in callbacks:
             cb(step, state, metrics)
 
     if prof is not None:
         _stop_profile(prof, profile_dir, device)
-    if int(first_bad) >= 0:
-        raise NaNLossError(f"Loss is not finite at step {int(first_bad)}.")
+    bad_step = _first_bad(first_bad, group)
+    if bad_step >= 0:
+        raise NaNLossError(f"Loss is not finite at step {bad_step}.")
     if checkpoint_dir is not None:
         save_checkpoint(checkpoint_dir, state)
     return state

@@ -81,15 +81,22 @@ class Optimizer:
         return torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(list(grads))))
 
-    def apply_gradients(self) -> torch.Tensor:
+    def apply_gradients(self, reduce: Optional[Callable] = None
+                        ) -> torch.Tensor:
         """Consume the `.grad` of one backward: returns the gradients'
         global norm before any clipping; updates the parameters when the
         accumulation window closes. Parameters without a gradient count as
-        zero."""
+        zero. `reduce(tensors)`, where given, averages tensors over the
+        data-parallel ranks in place: it is called once a window, on the
+        micro-step that closes it, with the gradients and the window's
+        running mean so far, before anything reads them."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if reduce is not None and (self.mini_step + 1
+                                   >= self.accumulation_steps):
+            reduce(grads + (self.acc or []))
         grad_norm = self.global_norm(grads)
         if self.accumulation_steps > 1:
             if self.acc is None:

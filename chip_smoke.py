@@ -5,7 +5,8 @@ run the port's paths at full model width: BDM-Blending and BDM-Merging
 sampling, PC2 and PVD sampling, PC2's conditioning options and backbones,
 the precontracted stage-0 conv, training of PC2, PVD and the fusion
 network, the three command-line entry points with the evaluation CLI, the
-colouring model and the bench's quick run.
+colouring model, the bench's quick run and the parallel paths on two
+ranks.
 
     python3 chip_smoke.py
 
@@ -113,13 +114,35 @@ Phases, in the order they run (any failure exits non-zero):
      through `train_loop`; then `python -m bdm_tpu_torch.bench --quick`
      as a subprocess (rc 0, one JSON line, `value` > 0, the launches of
      its timed batches from its stderr).
-In c, e, g, h, i, j, k, l and m every kernel of the path must have launched
-and no plain version may have run on the card (the simple backbone of j:
-none may launch); on the bfloat16 paths (b, c, e, i, j, k, l, bf16 g, the
-fusion step of h, the bench's quick run) every launch of attention and
-conv3d must have taken the tensor-core kernel, on the float32 paths (the
-colouring model's whatever its configuration) the CUDA-core one. In the
-phases at production widths (b, c, e, i, j, k, g, h, l, m) every launch of
+  n. `bdm_tpu_torch.parallel` on two ranks spawned over gloo (both on the
+     one card: NCCL refuses two ranks on one GPU), PC2 at full width: two
+     data-parallel float32 SGD steps at B 8, four rows a rank, against one
+     process's two steps on the 8 rows (loss within 1e-5 relative, the
+     gradient norm within 1e-4, every parameter within 1e-5 of its tensor's
+     largest entry over a floor of 1e-6 of the model's largest), one bf16
+     step (all eight kernels, `scatter_sum` twice); the Chamfer distance of
+     16 x 4,096 points with pred's points split over the ranks against the
+     dense one (1e-5 relative); PC2's denoise at B 8, N 4,096 and 16,384,
+     float32, with the point axis sharded over the ranks, against the
+     unsharded denoise (rtol 1e-4, atol 5e-5, the JAX tests'), its walls
+     beside the unsharded ones, and one backward at N 4,096 (every
+     gradient within the JAX test's rtol 2e-4, atol 1e-5, or within twice
+     what an ulp's nudge of the input moves the unsharded gradient itself:
+     a max-pool's gradient jumps where two neighbours nearly tie); every
+     kernel of each path
+     launched on each rank, checked as a path is; before them the
+     scatter-sum at the sharded grid's partial-sum shapes, bit for bit the
+     CPU's `index_add_`, timed; after them one world-1 step over NCCL
+     against the one process's first, the ranks' checkpoint restored in one
+     process, and `parallel.dryrun.dryrun_multichip(2)` on the card.
+In c, e, g, h, i, j, k, l, m and n every kernel of the path must have
+launched and no plain version may have run on the card (the simple backbone
+of j: none may launch); on the bfloat16 paths (b, c, e, i, j, k, l, bf16 g,
+the fusion step of h, the bench's quick run, n's bf16 step) every launch of
+attention and conv3d must have taken the tensor-core kernel, on the float32
+paths (the colouring model's whatever its configuration) the CUDA-core one.
+In the phases at production widths (b, c, e, i, j, k, g, h, l, m, n, whose
+ranks note theirs and hand them back) every launch of
 the kernels whose shapes follow the model's widths (conv3d, attention,
 scatter_mean) notes its shape; the run fails if a path gave a kernel a
 shape that phase a did not hold against the plain version.
@@ -261,13 +284,15 @@ CONVS = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
 ATTNS = [(4096, 64), (4096, 128)]
 # ... and scatter_mean at the voxel sites of PC2, PVD and the fusion
 # network, (C, R, N): 390 = PC2 stage-0 input; then those of PVD at twice
-# the width on 2,048 points
+# the width on 2,048 points; those of the stages at the input level of PC2
+# on 16,384 points (phase n's unsharded reference)
 SITES = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096),
          (192, 8, 256), (256, 8, 64), (256, 8, 256), (128, 16, 1024),
          (64, 32, 4096),
          (3, 32, 2048), (64, 32, 2048), (128, 32, 2048), (192, 16, 1024),
          (256, 16, 1024), (320, 8, 256), (512, 8, 64), (512, 8, 256),
-         (TAP_C, 32, 4096)] + [(c, 32, 4096) for c in STAGE0_CINS]
+         (TAP_C, 32, 4096)] + [(c, 32, 4096) for c in STAGE0_CINS] + [
+             (390, 32, 16384), (32, 32, 16384), (64, 32, 16384)]
 
 # The shapes the paths gave the kernels whose shapes follow the model's
 # widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N).
@@ -368,6 +393,7 @@ def check_kernels(dev):
                  f"`points`")
     # the first level of a cloud of 2,048 points (PVD at twice the width)
     pts[2048] = pts[4096][:, :2048].contiguous()
+    pts[16384] = randn(b, 16384, 3, scale=0.3)     # phase n's largest cloud
     idx2 = fps.furthest_point_sample(pts[2048], 1024)
     if not torch.equal(idx2, fps.furthest_point_sample_plain(pts[2048],
                                                              1024)):
@@ -2149,6 +2175,476 @@ def bench_quick():
     return lines[0], launches
 
 
+# ------------------------------------------------------------ phase n
+
+# phase n's point-sharded denoise: the point counts; its data-parallel
+# training: B 8 over two ranks of four rows
+SP_POINTS = (4096, 16384)
+DP_B, DP_N, DP_STEPS = 8, 4096, 2
+
+
+def dp_pc2(mixed_precision, dev, sp_group=None):
+    """Phase n's PC2 at full width: random weights from SEED, the feature
+    model frozen, a visible head (under PC2's 1e-6 head the backbone's
+    gradients are ~1e-6 and its outputs ~1e-6: nothing to compare)."""
+    import torch
+    from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig
+    from bdm_tpu_torch.train import pc2_freeze_mask
+    pc2 = PC2Model(ProjectionConfig(mixed_precision=mixed_precision),
+                   device=dev, sp_group=sp_group)
+    pc2.reset_parameters(SEED)
+    pc2_freeze_mask(pc2)
+    head = pc2.backbone.classifier[2].weight
+    with torch.no_grad():
+        head.copy_(torch.randn(head.shape, generator=torch.Generator()
+                               .manual_seed(5)).to(dev) * 0.1)
+    return pc2
+
+
+def sgd_state(model):
+    """SGD (lr 1e-3) with the clip at 50 and the EMA every step: SGD keeps
+    a parameter's difference between two runs proportional to its
+    gradient's (Adam would turn the rounding noise of a gradient that is
+    zero in exact arithmetic into a step of the learning rate's size)."""
+    from bdm_tpu_torch.train import create_train_state, make_optimizer
+    return create_train_state(model, make_optimizer(model, "SGD", lr=1e-3),
+                              use_ema=True, ema_update_every=1)
+
+
+def trainable(model):
+    return {k: p.detach().cpu().clone() for k, p in model.named_parameters()
+            if p.requires_grad}
+
+
+def params_err(got, want):
+    """max |got - want| over every tensor, each over 1e-5 of its tensor's
+    largest entry plus a floor of 1e-6 of the model's largest -> the worst
+    ratio (1: at the tolerance). The floor holds the tensors whose
+    gradient is rounding noise (a conv bias ahead of a GroupNorm has none
+    in exact arithmetic), which the backward of a gather, adding with
+    atomics in an order that changes, makes differ between two runs of one
+    process on the card by up to 3e-7 (measured by this phase on an
+    NVIDIA H100 80GB HBM3 at 700 W)."""
+    floor = 1e-6 * max(float(w.abs().max()) for w in want.values())
+    ratios = {k: float((got[k] - w).abs().max())
+              / (1e-5 * float(w.abs().max()) + floor)
+              for k, w in want.items()}
+    worst = max(ratios, key=ratios.get)
+    print(f"params_err: worst {worst} {ratios[worst]:.3f}: max|err| "
+          f"{float((got[worst] - want[worst]).abs().max()):.3e}, max|p| "
+          f"{float(want[worst].abs().max()):.3e}, floor {floor:.3e}; "
+          f"{sum(r > 1 for r in ratios.values())} of {len(ratios)} over")
+    return ratios[worst]
+
+
+def grads_err(got, want):
+    """Each tensor's worst |got - want| over 1e-5 + 2e-4 |want|, elementwise
+    (the JAX test's `assert_allclose`) -> {name: ratio}."""
+    return {k: float(((got[k] - w).abs() / (1e-5 + 2e-4 * w.abs())).max())
+            for k, w in want.items()}
+
+
+def _parallel_rank(d):
+    """One of phase n's two ranks (spawned, both on the one card, gloo):
+    the data-parallel float32 steps and the bf16 step, the sharded
+    Chamfer distance, the point-sharded denoise at SP_POINTS with its walls
+    and one backward; -> <d>/rank<r>.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bdm_tpu_torch.conditioning import PerspectiveCamera
+    from bdm_tpu_torch.evaluation import chamfer_distance_sharded
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.parallel import init_distributed, shard_batch
+    from bdm_tpu_torch.parallel.point_sharded import own_rows
+    from bdm_tpu_torch.samplers import TrainNoise
+    from bdm_tpu_torch.train import make_train_step, save_checkpoint
+    dev = init_distributed()
+    record_shapes()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    group = dist.group.WORLD
+    inp = torch.load(os.path.join(d, "inputs.pt"), map_location=dev,
+                     weights_only=False)
+    cam = PerspectiveCamera(**inp["camera"])
+    local = shard_batch(dict(inp["batch"], camera=cam), rank, world)
+    out = {}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def counts():
+        return kernels.counts(), kernels.path_counts()
+
+    # 1. data-parallel training, float32 then one bf16 step
+    pc2 = dp_pc2("no", dev)
+    state = sgd_state(pc2)
+    step = make_train_step(pc2.loss, group)
+    noise = TrainNoise(SEED + 12, dev)
+    sync()
+    kernels.reset_counts()
+    out["dp_steps"] = []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, local, noise)
+        sync()
+        out["dp_steps"].append((
+            {k: float(v) for k, v in m.items()}, time.perf_counter() - t0,
+            trainable(pc2) if rank == 0 else None))
+    out["dp_counts"] = counts()
+    save_checkpoint(os.path.join(d, "ckpt"), state)       # rank 0 writes
+    del pc2, state
+    pc2 = dp_pc2("bf16", dev)
+    step = make_train_step(pc2.loss, group)
+    sync()
+    kernels.reset_counts()
+    m = step(sgd_state(pc2), local, TrainNoise(SEED + 12, dev))
+    sync()
+    out["bf16"] = ({k: float(v) for k, v in m.items()}, counts())
+    del pc2
+    torch.cuda.empty_cache()
+
+    # 2. the Chamfer distance with pred's points split over the ranks
+    out["chamfer"] = chamfer_distance_sharded(
+        own_rows(inp["pred"], group), inp["gt"], group).cpu()
+
+    # 3. the point-sharded denoise, float32
+    pc2 = dp_pc2("no", dev, sp_group=group)
+    cond = pc2.prepare_cond(pc2.conditioning_map(inp["image"]))
+    t = inp["t"]
+    for n in SP_POINTS:
+        x = own_rows(inp[f"x{n}"], group)
+        walls = []
+        for _ in range(3):
+            sync()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                eps = pc2.denoise(x, t, cam, cond)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        out[f"sp{n}"] = (eps.cpu(), walls, counts())
+    # one backward: this rank's part of the whole mean, gradients summed
+    x, tgt = own_rows(inp["x4096"], group), own_rows(inp["tgt"], group)
+    sync()
+    t0 = time.perf_counter()
+    part = torch.sum((pc2.denoise(x, t, cam, cond) - tgt) ** 2) / (
+        inp["tgt"].numel())
+    part.backward()
+    grads = {k: p.grad for k, p in pc2.backbone.named_parameters()}
+    for g in grads.values():
+        dist.all_reduce(g)
+    sync()
+    out["sp_backward_s"] = time.perf_counter() - t0
+    if rank == 0:
+        out["sp_grads"] = {k: g.cpu() for k, g in grads.items()}
+    out["seen"] = {k: sorted(v) for k, v in SEEN.items()}
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+
+
+def sharded_scatter_sums(res, dev):
+    """The scatter-sum at the shapes of the point-sharded grid's partial
+    sums (a shard of 2,048 or 8,192 points into R 32, the rows [features |
+    1] at PC2's input-level widths 390, 32 and 64): bit for bit the CPU's
+    `index_add_`, timed beside it; added to phase a's `ms_by_shape`."""
+    import torch
+    from bdm_tpu_torch import ops
+    from bdm_tpu_torch.ops.cuda import scatter_sum
+    g = torch.Generator().manual_seed(SEED + 13)
+    b, s = 8, 32 ** 3
+    for n in (2048, 8192):
+        ids = ops.make_voxel_context(
+            (torch.randn(b, n, 3, generator=g) * 0.3).to(dev), 32).ids
+        for c in (391, 33, 65):
+            rows = torch.randn(b, n, c, generator=g).to(dev)
+            sums = scatter_sum.scatter_sum(rows, ids, s)
+            if not torch.equal(sums.cpu(), scatter_sum.scatter_sum_plain(
+                    rows.cpu(), ids.cpu(), s)):
+                fail(f"scatter_sum N={n} S={s} C={c}: not the CPU's "
+                     f"index_add_ bit for bit")
+            dst = (ids.long() + torch.arange(b, device=dev)[:, None] * s
+                   ).reshape(-1)
+            flat, acc = rows.reshape(-1, c), torch.empty((b * s, c),
+                                                         device=dev)
+            res["scatter_sum"]["ms_by_shape"][f"N{n}_S{s}_C{c}"] = dict(
+                ms=timed_ms(lambda: scatter_sum.scatter_sum(rows, ids, s),
+                            inner=20),
+                library_ms=timed_ms(
+                    lambda: acc.zero_().index_add_(0, dst, flat), inner=20),
+                **bound([rows, ids, sums], rows.numel(), "f32"))
+
+
+def parallel_paths(res, dev):
+    """Phase n: `bdm_tpu_torch.parallel` on the card, two ranks spawned
+    over gloo (they share the one card). PC2 at full width, float32:
+    two data-parallel SGD steps at B 8 (four rows a rank) against one
+    process's two steps on the 8 rows, one bf16 step; the sharded Chamfer
+    distance of 16 x 4,096 points against the dense one; the point-sharded
+    denoise at B 8, N 4,096 and 16,384, against the unsharded one, with
+    its walls beside the unsharded walls, and one backward's gradients;
+    then a world-1 NCCL step against the single process's first, the
+    checkpoint of the two ranks restored in one process, and the
+    dryrun on two ranks on the card. -> (the summary, the launches of
+    each path)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from bdm_tpu_torch.evaluation import chamfer_distance
+    from bdm_tpu_torch.parallel import init_distributed, spawn_ranks
+    from bdm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from bdm_tpu_torch.parallel.mesh import free_port
+    from bdm_tpu_torch.samplers import TrainNoise
+    from bdm_tpu_torch.tools.standins import camera, training_batches
+    from bdm_tpu_torch.train import make_train_step, restore_checkpoint
+    t_phase = time.perf_counter()
+    sharded_scatter_sums(res, dev)
+    g = torch.Generator().manual_seed(SEED + 14)
+    batch = next(training_batches(SEED + 11, DP_B, DP_N, "cpu"))
+    cam = camera(DP_B, "cpu")
+    inputs = {
+        "batch": {k: v for k, v in batch.items() if k != "camera"},
+        "camera": {k: getattr(cam, k) for k in ("R", "T", "focal_length",
+                                                "principal_point")},
+        "pred": torch.randn(16, 4096, 3, generator=g) * 0.3,
+        "gt": torch.randn(16, 4096, 3, generator=g) * 0.3 + 0.01,
+        "image": torch.rand(DP_B, 224, 224, 3, generator=g),
+        "t": torch.randint(0, 1000, (DP_B,), generator=g),
+        "tgt": torch.randn(DP_B, 4096, 3, generator=g),
+        **{f"x{n}": torch.randn(DP_B, n, 3, generator=g) * 0.3
+           for n in SP_POINTS}}
+    on_dev = {k: v.to(dev) for k, v in inputs.items()
+              if torch.is_tensor(v)}
+    dbatch = {k: v.to(dev) for k, v in inputs["batch"].items()}
+    dbatch["camera"] = camera(DP_B, dev)
+
+    # one process: two SGD steps on the 8 rows, twice (the second run is
+    # the yardstick of the card's own spread), then the unsharded denoise
+    runs = []
+    for _ in range(2):
+        pc2 = dp_pc2("no", dev)
+        state = sgd_state(pc2)
+        step = make_train_step(pc2.loss)
+        noise = TrainNoise(SEED + 12, dev)
+        runs.append([])
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, dbatch, noise)
+            torch.cuda.synchronize()
+            runs[-1].append(({k: float(v) for k, v in m.items()},
+                             time.perf_counter() - t0, trainable(pc2)))
+        del pc2, state
+    single = runs[0]
+    dp_spread = params_err(runs[1][-1][2], single[-1][2])
+    del runs
+    pc2 = dp_pc2("no", dev)
+    cond = pc2.prepare_cond(pc2.conditioning_map(on_dev["image"]))
+    unsharded = {}
+    for n in SP_POINTS:
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                eps = pc2.denoise(on_dev[f"x{n}"], on_dev["t"], dbatch[
+                    "camera"], cond)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        unsharded[n] = (eps.cpu(), walls)
+    # twice: the second is the yardstick of the card's own spread (the
+    # backward of a gather adds with atomics, in an order that changes)
+    backward = []
+    for _ in range(2):
+        pc2.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = torch.mean((pc2.denoise(on_dev["x4096"], on_dev["t"],
+                                       dbatch["camera"], cond)
+                           - on_dev["tgt"]) ** 2)
+        loss.backward()
+        torch.cuda.synchronize()
+        backward.append((time.perf_counter() - t0, {
+            k: p.grad.cpu() for k, p in pc2.backbone.named_parameters()}))
+    backward_s, want_grads = backward[0]
+    # and with the input points moved by about one float32 ulp: how far the
+    # gradients move when the forward's values change by rounding alone
+    # (a max-pool routes a gradient to one neighbour of a near-tie)
+    pc2.zero_grad(set_to_none=True)
+    x = on_dev["x4096"]
+    x = x + x.abs() * 2.0 ** -23 * torch.randn(
+        x.shape, generator=torch.Generator().manual_seed(SEED + 15)).sign(
+        ).to(dev)
+    torch.mean((pc2.denoise(x, on_dev["t"], dbatch["camera"], cond)
+                - on_dev["tgt"]) ** 2).backward()
+    nudged = {k: p.grad.cpu() for k, p in pc2.backbone.named_parameters()}
+    want_cd = chamfer_distance(on_dev["pred"], on_dev["gt"]).cpu()
+    del pc2, cond, on_dev
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(inputs, os.path.join(d, "inputs.pt"))
+        t0 = time.perf_counter()
+        spawn_ranks(_parallel_rank, 2, (d,), timeout=600)
+        ranks_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+        ckpt = os.path.join(d, "ckpt", "checkpoint-latest.pt")
+        payload = torch.load(ckpt, map_location=dev, weights_only=True)
+        if any(k.startswith("module.") for k in payload["model"]):
+            fail("phase n: the checkpoint of two ranks has module. keys")
+        one = dp_pc2("no", dev)
+        restored = restore_checkpoint(ckpt, sgd_state(one))
+        if restored.step != DP_STEPS or not all(
+                torch.equal(v, outs[0]["dp_steps"][-1][2][k])
+                for k, v in trainable(one).items()):
+            fail("phase n: the checkpoint of two ranks does not restore "
+                 "their parameters in one process")
+        del one, restored, payload
+    for o in outs:
+        for k, v in o["seen"].items():
+            SEEN[k].update(tuple(x) for x in v)
+
+    # the two ranks against one process
+    errs = {"dp_loss": 0.0, "dp_grad_norm": 0.0, "dp_params": 0.0}
+    for i, (wm, _, wp) in enumerate(single):
+        for o in outs:
+            gm = o["dp_steps"][i][0]
+            for k in ("loss", "grad_norm"):
+                errs[f"dp_{k}"] = max(errs[f"dp_{k}"],
+                                      abs(gm[k] - wm[k]) / abs(wm[k]))
+        errs["dp_params"] = max(errs["dp_params"],
+                                params_err(outs[0]["dp_steps"][i][2], wp))
+    errs["single_again_params"] = dp_spread
+    print(f"phase n: 2 ranks x {DP_B // 2} rows against 1 x {DP_B}, "
+          f"float32 SGD, {DP_STEPS} steps: losses "
+          f"{[s[0]['loss'] for s in outs[0]['dp_steps']]} / "
+          f"{[s[0]['loss'] for s in single]}, grad norms "
+          f"{[s[0]['grad_norm'] for s in outs[0]['dp_steps']]} / "
+          f"{[s[0]['grad_norm'] for s in single]}; relative errors "
+          f"{json.dumps(errs)}")
+    if not (errs["dp_loss"] <= 1e-5 and errs["dp_grad_norm"] <= 1e-4
+            and errs["dp_params"] <= 1.0):
+        fail(f"phase n: the data-parallel steps are not the one process's: "
+             f"{errs}")
+    bf16 = outs[0]["bf16"][0]
+    if not all(abs(x) < 1e30 and x == x for x in bf16.values()):
+        fail(f"phase n: the bf16 data-parallel step gave {bf16}")
+
+    cd = outs[0]["chamfer"]
+    cd_err = float(((cd - want_cd).abs() / want_cd.abs()).max())
+    print(f"phase n: sharded Chamfer {tuple(inputs['pred'].shape)} over 2 "
+          f"ranks, max relative error {cd_err:.3e} against the dense one")
+    if not cd_err <= 1e-5 or not torch.equal(outs[1]["chamfer"], cd):
+        fail(f"phase n: the sharded Chamfer distance is off by {cd_err}")
+
+    sp = {}
+    for n in SP_POINTS:
+        got = torch.cat([o[f"sp{n}"][0] for o in outs], dim=1)
+        want, walls = unsharded[n]
+        err = float((got - want).abs().max())
+        # the JAX test's assert_allclose: |got - want| <= 5e-5 + 1e-4 |want|
+        of_tol = float(((got - want).abs() / (5e-5 + 1e-4 * want.abs()))
+                       .max())
+        sp[n] = dict(max_abs_err=err, err_of_tol=of_tol,
+                     max_abs_out=float(want.abs().max()),
+                     wall_s=statistics.median(outs[0][f"sp{n}"][1][1:]),
+                     unsharded_wall_s=statistics.median(walls[1:]))
+        print(f"phase n: point-sharded denoise B={DP_B} N={n} float32 over "
+              f"2 ranks: max|err| {err:.3e}, {of_tol:.3f} of the tolerance; wall "
+              f"{sp[n]['wall_s']:.3f} s, unsharded {sp[n]['unsharded_wall_s']:.3f} s "
+              f"(medians of 2 after a warm-up)")
+        if not torch.isfinite(got).all() or not of_tol <= 1.0:
+            fail(f"phase n: the point-sharded denoise at N={n} is off by "
+                 f"{err}")
+    # the gradient of a max-pool is not continuous: where two neighbours
+    # nearly tie, rounding alone routes it to either. So a tensor passes
+    # within the JAX test's tolerance, or within twice the change that an
+    # ulp's nudge of the input makes in the unsharded gradient itself.
+    gerr = grads_err(outs[0]["sp_grads"], want_grads)
+    spread = grads_err(backward[1][1], want_grads)
+    nudge = grads_err(nudged, want_grads)
+    over = {k: (r, nudge[k]) for k, r in gerr.items()
+            if r > max(1.0, 2.0 * nudge[k])}
+    beyond = sorted(k for k, r in gerr.items() if r > 1.0)
+    worst = max(gerr, key=gerr.get)
+    print(f"phase n: point-sharded backward N={SP_POINTS[0]}: worst "
+          f"gradient {worst} at {gerr[worst]:.3f} of the JAX tolerance (an "
+          f"ulp's nudge of the input moves the unsharded one by "
+          f"{nudge[worst]:.3f} there, {max(nudge.values()):.3f} at worst; "
+          f"a second unsharded backward {max(spread.values()):.3f}); "
+          f"{len(beyond)} of {len(gerr)} tensors beyond the JAX tolerance "
+          f"{beyond}; wall "
+          f"{outs[0]['sp_backward_s']:.3f} s, unsharded {backward_s:.3f} s")
+    if over:
+        fail(f"phase n: point-sharded gradients off: {over}")
+
+    launches = {}
+    for name, key, unused, f32 in (
+            ("dp_f32", "dp_counts", ("interp_mm", "scatter_sum"), True),
+            ("dp_bf16", None, (), False),
+            ("sp_4096", "sp4096", ("interp_mm",), True),
+            ("sp_16384", "sp16384", ("interp_mm",), True)):
+        for r, o in enumerate(outs):
+            c = o["bf16"][1] if key is None else (o[key] if key == "dp_counts"
+                                                  else o[key][2])
+            got = check_path(f"{name} (rank {r})", *c, unused, f32)
+            if r == 0:
+                launches[name] = got
+    if launches["dp_bf16"]["scatter_sum"] != 2:
+        fail(f"phase n: the bf16 step launched scatter_sum "
+             f"{launches['dp_bf16']['scatter_sum']} times, not 2")
+    print("phase n launches (rank 0):", json.dumps(launches))
+
+    # world 1 over NCCL: the step of one process, through a process group
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    try:
+        init_distributed()
+        backend = dist.get_backend()
+        pc2 = dp_pc2("no", dev)
+        m = make_train_step(pc2.loss, dist.group.WORLD)(
+            sgd_state(pc2), dbatch, TrainNoise(SEED + 12, dev))
+        nccl = dict(backend=backend, loss=float(m["loss"]),
+                    params_err=params_err(trainable(pc2), single[0][2]))
+        del pc2
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    print(f"phase n: world 1 over {nccl['backend']}: loss {nccl['loss']} "
+          f"against {single[0][0]['loss']}, parameters at "
+          f"{nccl['params_err']:.3f} of the tolerance")
+    if backend != "nccl" or not abs(nccl["loss"] - single[0][0]["loss"]) \
+            <= 1e-5 * abs(single[0][0]["loss"]) or not nccl["params_err"] <= 1.0:
+        fail(f"phase n: the world-1 NCCL step is not one process's: {nccl}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    dryrun_s = time.perf_counter() - t0
+    summary = dict(
+        dp=dict(errors=errs, step_s=[s[1] for s in outs[0]["dp_steps"]],
+                single_step_s=[s[1] for s in single],
+                losses=[s[0]["loss"] for s in outs[0]["dp_steps"]],
+                bf16=bf16),
+        chamfer_max_rel_err=cd_err, sp=sp,
+        sp_grad_err_of_tol=gerr[worst], sp_grads_beyond_tol=beyond,
+        unsharded_again_grad_err_of_tol=max(spread.values()),
+        nudged_grad_err_of_tol=max(nudge.values()),
+        sp_backward_s=outs[0]["sp_backward_s"],
+        unsharded_backward_s=backward_s, world1=nccl, ranks_s=ranks_s,
+        dryrun_s=dryrun_s, phase_s=time.perf_counter() - t_phase)
+    print("phase n:", json.dumps(summary))
+    return summary, launches
+
+
 def main() -> int:
     if not (ROOT / "bdm_tpu_torch").is_dir():
         print("chip_smoke: bdm_tpu_torch is not beside this script",
@@ -2202,6 +2698,7 @@ def main() -> int:
     cli, cli_eval, eval_ms = cli_paths(dev)
     coloring = coloring_paths(dev)
     quick_line, quick_launches = bench_quick()
+    parallel, parallel_launches = parallel_paths(res, dev)
     check_shapes_covered(checked)
     by_path = dict(bdm_blending=blend, bdm_merging=merged,
                    **{k: v["launches"] for k, v in train.items()},
@@ -2213,6 +2710,7 @@ def main() -> int:
     by_path["bdm_blending_precontract"] = pre_ab["bdm_b"]["launches"]
     by_path.update({k: v["launches"] for k, v in coloring.items()})
     by_path["bench_quick"] = quick_launches
+    by_path.update(parallel_launches)
 
     rows = []
     for name, (mod, source, replaces) in kernels.KERNELS.items():
@@ -2248,7 +2746,8 @@ def main() -> int:
                       "coloring": {k: {m: v[m] for m in v if m != "launches"}
                                    for k, v in coloring.items()},
                       "coloring_tiny_max_abs_err": tiny_coloring_err,
-                      "bench_quick": quick_line}))
+                      "bench_quick": quick_line,
+                      "parallel": parallel}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

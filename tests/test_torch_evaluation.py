@@ -7,7 +7,9 @@ ulps); F1 exact on the reference's threshold cases and within 1/N on
 random clouds (a point at the threshold may fall either side by one ulp);
 the generative metrics within rtol 1e-5 (their argmins agree exactly on
 these clouds); `evaluate_dirs` equal to JAX's within the same tolerances,
-with the same NaN names and the same missing-gt warning.
+with the same NaN names and the same missing-gt warning. The sharded
+Chamfer distance on two gloo ranks (`tests/torch_ranks.py::chamfer_rank`)
+within rtol 1e-5 of the dense one and of JAX's on `get_mesh(2)`.
 """
 
 import os
@@ -26,6 +28,7 @@ from bdm_tpu_torch.evaluation import metrics as M
 from bdm_tpu_torch.evaluation.cli import evaluate_dirs
 from bdm_tpu_torch.evaluation.cli import main as eval_main
 from bdm_tpu_torch.utils import write_ply
+from tests import torch_ranks as R
 
 
 def clouds(seed, b=3, n=200, m=170, scale=0.3):
@@ -158,3 +161,31 @@ def test_eval_cli_prints_what_jax_prints(ply_dirs, capsys):
     assert any(line.startswith("F1@0.01: ") for line in ours)
     assert "  NaN results: ['s02.ply']" in ours
     assert len(os.listdir(pred)) == 7
+
+
+@pytest.fixture(scope="module")
+def sharded_chamfer(tmp_path_factory):
+    """pred's 256 points split over two ranks, gt whole on each."""
+    a, b = clouds(9, b=2, n=256, m=170)
+    outs = R.run(R.chamfer_rank, 2, tmp_path_factory.mktemp("cd"),
+                 {"pred": t(a), "gt": t(b)})
+    for o in outs[1:]:
+        assert all(torch.equal(o[r], outs[0][r]) for r in (True, False))
+    return a, b, outs[0]
+
+
+@pytest.mark.parametrize("recenter", [True, False])
+def test_chamfer_sharded_equals_dense(sharded_chamfer, recenter):
+    a, b, got = sharded_chamfer
+    np.testing.assert_allclose(
+        got[recenter].numpy(),
+        M.chamfer_distance(t(a), t(b), recenter=recenter).numpy(), rtol=1e-5)
+
+
+def test_chamfer_sharded_matches_jax(sharded_chamfer):
+    from bdm_tpu.parallel import get_mesh
+    a, b, got = sharded_chamfer
+    want = JM.chamfer_distance_sharded(jnp.asarray(a), jnp.asarray(b),
+                                       get_mesh(2))
+    np.testing.assert_allclose(got[True].numpy(), np.asarray(want),
+                               rtol=1e-5)

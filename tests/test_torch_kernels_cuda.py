@@ -37,6 +37,7 @@ float32 PC2 loss with dropout on is a function of its `TrainNoise` seed
 """
 
 import importlib.util
+import sys
 from pathlib import Path
 
 import pytest
@@ -615,3 +616,55 @@ def test_precontracted_denoise_on_the_card(dev):
     assert kernels.counts()["scatter_mean"][1] == 0
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= 1e-4
+
+
+def test_data_parallel_step_on_two_ranks(dev, tmp_path):
+    """One data-parallel SGD step of the tiny PC2 (dropout 0.1) on two
+    ranks spawned on the card (gloo when they share it, NCCL with a card
+    each), a row a rank, against one process's step on both rows on the
+    card: loss and gradient norm within 1e-5 relative, every parameter
+    within 1e-5 of its tensor's largest entry over a floor of 1e-7 of the
+    model's largest (a conv bias ahead of a GroupNorm holds rounding noise
+    only); each rank launched the float32 path's kernels and ran no plain
+    version on the card."""
+    from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig, TrainNoise
+    from bdm_tpu_torch.tools.standins import training_batches
+    from bdm_tpu_torch.train import make_train_step
+    # by its path: a spawned rank imports it by name, and `tests` may name
+    # another package where this file runs without the JAX package
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks as R
+    cfg = dict(image_size=16, image_feature_model="identity",
+               raster_point_radius=0.3, point_cloud_model_embed_dim=8)
+    pc2 = PC2Model(ProjectionConfig(**cfg), R.TINY_SA, R.TINY_FP,
+                   device="cpu")
+    pc2.reset_parameters(0)
+    with torch.no_grad():
+        head = pc2.backbone.classifier[2].weight
+        head.copy_(torch.randn(head.shape) * 0.1)
+    batch = next(training_batches(1, 2, 64, "cpu", image_size=16))
+    cam = {k: getattr(batch["camera"], k)
+           for k in ("R", "T", "focal_length", "principal_point")}
+    inputs = {"cfg": cfg, "state": pc2.state_dict(),
+              "batch": {"image": batch["image"], "points": batch["points"],
+                        "camera": cam}}
+    outs = R.run(R.cuda_dp_rank, 2, tmp_path, inputs)
+    one = R.tiny_pc2(cfg, inputs["state"], 0.1, dev)
+    want = make_train_step(one.loss)(
+        R.sgd_state(one), R.batch_of({"batch": {
+            k: ({n: t.to(dev) for n, t in v.items()} if k == "camera"
+                else v.to(dev)) for k, v in inputs["batch"].items()}}),
+        TrainNoise(7, dev))
+    want_params = {k: v.cpu() for k, v in R.params(one).items()}
+    floor = 1e-7 * max(float(w.abs().max()) for w in want_params.values())
+    for out in outs:
+        for k in ("loss", "grad_norm"):
+            assert abs(out["metrics"][k] - float(want[k])) <= 1e-5 * abs(
+                float(want[k])), (k, out["metrics"])
+        for k, w in want_params.items():
+            err = float((out["params"][k] - w).abs().max())
+            assert err <= 1e-5 * float(w.abs().max()) + floor, (k, err)
+        for name, (launches, plain) in out["counts"].items():
+            assert plain == 0, name
+            if name not in ("interp_mm", "scatter_sum", "attention"):
+                assert launches > 0, name

@@ -72,6 +72,9 @@ def world():
                 m.p = 0.0
     w.points = (np.random.default_rng(21).standard_normal((B, N, 3)) * 0.3
                 ).astype(np.float32)
+    # PC2's loss and gradients, compiled once for the tests that take them
+    w.jpc2_value_and_grad = jax.jit(jax.value_and_grad(
+        lambda p, b, k: w.jpc2.loss(p, b, k)))
     return w
 
 
@@ -92,16 +95,23 @@ def _batches(w):
 
 
 def _cases(w):
+    """name -> (port model, JAX (loss, gradients) of (params, key), JAX
+    params, port loss of a noise, gradient tree -> port names)."""
     jb, tb = _batches(w)
     f = w.merge.fusion
+
+    def jvg(loss):
+        return jax.jit(jax.value_and_grad(loss))
+
     return {
-        "pc2": (w.pc2, lambda p, k: w.jpc2.loss(p, jb, k), w.pc2_params,
+        "pc2": (w.pc2, lambda p, k: w.jpc2_value_and_grad(p, jb, k),
+                w.pc2_params,
                 lambda n: w.pc2.loss(tb, n),
                 lambda g: CJ.grads_state_dict(g, w.pc2.backbone.specs)),
-        "pvd": (w.pvd, lambda p, k: w.jpvd.loss(p, jb["points"], k),
+        "pvd": (w.pvd, jvg(lambda p, k: w.jpvd.loss(p, jb["points"], k)),
                 w.pvd_params, lambda n: w.pvd.loss(tb["points"], n),
                 lambda g: CJ.grads_state_dict(g, w.pvd.model.specs, "model")),
-        "merging": (w.merge, lambda p, k: w.jmerge.loss(p, jb, k),
+        "merging": (w.merge, jvg(lambda p, k: w.jmerge.loss(p, jb, k)),
                     w.merge_params, lambda n: w.merge.loss(tb, n),
                     lambda g: CJ.fusion_grads_state_dict(g, f.pc2_specs,
                                                          f.pvd_specs)),
@@ -127,9 +137,9 @@ def _assert_grads_close(got, want, floor_over=lambda k: True):
 
 @pytest.mark.parametrize("name", ["pc2", "pvd", "merging"])
 def test_loss_and_gradients_match_jax(world, name):
-    model, jloss, jparams, tloss, names = _cases(world)[name]
+    model, jvg, jparams, tloss, names = _cases(world)[name]
     key = jax.random.PRNGKey(31)
-    want_loss, want = jax.jit(jax.value_and_grad(jloss))(jparams, key)
+    want_loss, want = jvg(jparams, key)
     want = names(jax.tree_util.tree_map(np.asarray, want))
     model.zero_grad(set_to_none=True)
     model.train()          # the train path; the dropouts are at p = 0
@@ -225,8 +235,7 @@ def test_tiny_pc2_head_gradient_parity(world):
     try:
         jb, tb = _batches(world)
         key = jax.random.PRNGKey(32)
-        want = jax.jit(jax.grad(lambda p, k: world.jpc2.loss(p, jb, k)))(
-            params, key)
+        _, want = world.jpc2_value_and_grad(params, jb, key)
         want = CJ.grads_state_dict(jax.tree_util.tree_map(np.asarray, want),
                                    world.pc2.backbone.specs)
         world.pc2.zero_grad(set_to_none=True)
