@@ -156,7 +156,7 @@ def kernel_self_check(dev, b: int = 8) -> dict:
         hold("three_nn weights N4096 M1024", w, pw, 1e-6)
         f = randn(b, 1024, 128, dtype=torch.bfloat16)
         hold("interp_mm N4096 M1024 C128", interp.interp_mm(i, w, f),
-             interp.interp_mm_plain(i, w, f), 2 ** -8)
+             interp.interp_mm_plain(i, w, f), 0)
         ctx = ops.make_voxel_context(pts, 32)
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 8e-3)):
             f = randn(b, 4096, 390, dtype=dt)
@@ -282,8 +282,9 @@ def check_launches(counts: dict, paths: dict, expected: set,
     """Every kernel of `expected` launched and no other; no plain version
     ran on the card; every attention and conv3d launch took the
     tensor-core kernel ("tc"), on a float32 path the CUDA-core one
-    ("simt"). Raises AssertionError on a breach; -> the launches, those
-    two kernels' also by kernel ("conv3d_tc", ...)."""
+    ("simt"); every blend the vector kernel (the models' widths are
+    multiples of 8). Raises AssertionError on a breach; -> the launches,
+    those of the kernels with paths also by kernel ("conv3d_tc", ...)."""
     for name, (launches, plain) in counts.items():
         if (launches > 0) != (name in expected):
             raise AssertionError(f"kernel {name} launched {launches} times; "
@@ -292,12 +293,12 @@ def check_launches(counts: dict, paths: dict, expected: set,
             raise AssertionError(f"the plain version of {name} ran on the "
                                  f"card {plain} times")
     out = {k: v[0] for k, v in counts.items()}
-    wrong = "tc" if float32 else "simt"
+    wrong = {"tc" if float32 else "simt", "scalar"}
     for name, by in paths.items():
-        if by["tc"] + by["simt"] != out[name]:
+        if sum(by.values()) != out[name]:
             raise AssertionError(f"{name}: {by} launches by kernel, "
                                  f"{out[name]} in all")
-        if by[wrong]:
+        if any(by[k] for k in wrong & set(by)):
             raise AssertionError(f"{name} launched {by}: the wrong kernel "
                                  f"for a {'float32' if float32 else 'bf16'} "
                                  f"path")

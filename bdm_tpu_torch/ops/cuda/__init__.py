@@ -4,9 +4,11 @@
 Every wrapper sends a CPU tensor to its plain PyTorch version and launches
 its CUDA kernel for a CUDA tensor (or raises). Each module counts its
 kernel launches (`launches`) and the calls of its plain version on CUDA
-tensors (`plain_cuda_calls`), so a run can show which path it took. The two
-modules whose source holds a tensor-core and a CUDA-core kernel (attention,
-conv3d) also count the launches of each (`launches_tc`, `launches_simt`).
+tensors (`plain_cuda_calls`), so a run can show which path it took. A
+module whose source holds several kernels names them in `PATHS` and counts
+the launches of each (`launches_<path>`): attention and conv3d "tc"
+(tensor cores) and "simt" (CUDA cores), the blend "vec" (16-byte
+channel groups) and "scalar" (one channel).
 """
 
 from __future__ import annotations
@@ -47,9 +49,8 @@ def reset_counts() -> None:
     for mod, _, _ in KERNELS.values():
         mod.launches = 0
         mod.plain_cuda_calls = 0
-        if hasattr(mod, "launches_tc"):
-            mod.launches_tc = 0
-            mod.launches_simt = 0
+        for path in getattr(mod, "PATHS", ()):
+            setattr(mod, f"launches_{path}", 0)
     conv3d.packs = 0
 
 
@@ -60,11 +61,13 @@ def counts() -> dict:
 
 
 def path_counts() -> dict:
-    """name -> {"tc": launches of the tensor-core kernel, "simt": of the
-    CUDA-core kernel}, for the modules that have both."""
-    return {name: {"tc": mod.launches_tc, "simt": mod.launches_simt}
+    """name -> {path: launches of that kernel}, for the modules with
+    `PATHS` (attention and conv3d: "tc", "simt"; interp_mm: "vec",
+    "scalar")."""
+    return {name: {path: getattr(mod, f"launches_{path}")
+                   for path in mod.PATHS}
             for name, (mod, _, _) in KERNELS.items()
-            if hasattr(mod, "launches_tc")}
+            if hasattr(mod, "PATHS")}
 
 
 __all__ = ["KERNELS", "build", "counts", "path_counts", "reset_counts"]

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "bdm_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "bdm_interp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "bdm_interp_floor": (_P, _I, _I, _I, _I, _I, _P),
     "bdm_scatter_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "bdm_scatter_sum": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "bdm_fps_points": (_I,),
     "bdm_three_nn_lanes": (_I, _I, _I),
     "bdm_three_nn_step": (_I,),
+    "bdm_interp_threads": (),
+    "bdm_interp_rows": (),
     "bdm_scatter_mean_vec": (_I, _I, _I),
     "bdm_scatter_mean_lanes": (_I, _I, _I),
 }
@@ -120,6 +123,19 @@ def build(verbose: bool = False) -> Path:
             print(log)
         os.replace(lib, so)
     return so
+
+
+def build_source(src: Path) -> ctypes.CDLL:
+    """Build one source (with the headers beside it) into a library of its
+    own under BUILD_DIR and load it: for timing another tree's kernel
+    beside this one's. Its entry points keep ctypes' default types until
+    the caller sets them."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(dir=BUILD_DIR)) / f"other_{src.stem}.so"
+    subprocess.run([_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-I", str(src.parent), str(src),
+                    "-o", str(out)], check=True)
+    return ctypes.CDLL(str(out))
 
 
 def library() -> ctypes.CDLL:

@@ -22,6 +22,7 @@ import torch
 from bdm_tpu_torch.ops.cuda import _lib
 
 launches = 0
+PATHS = ("tc", "simt")
 launches_tc = 0
 launches_simt = 0
 plain_cuda_calls = 0

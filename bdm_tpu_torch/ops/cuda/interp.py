@@ -6,13 +6,19 @@ Replaces `_interp_mm_fwd_pallas` / `interp_mm`
 F[idx_k[n]], float32 accumulation in k order, one rounding to bf16. The
 TPU kernel's one-hot matrix sums the weights of equal indices before the
 rounding; `three_nn` returns three distinct indices for M >= 3, where the
-two forms agree up to the order of the float32 sum.
+two forms agree up to the order of the float32 sum. The kernel gives the
+plain version's bits.
 
 `interp_mm` is differentiable in the features (`_interp_mm_bwd`): the 3N
 cotangent rows, each times its float32 weight (not the bf16-rounded one),
 are summed into the centres they were read from by `ops.cuda.scatter_sum`,
 and the sum is cast to the features' dtype. Indices and weights come from
 coordinates that carry no gradient.
+
+A thread of the kernel takes one group of `vec` channels (8, or 1 where C
+is no multiple of 8: "scalar") of ROWS rows; `launches_vec` and
+`launches_scalar` count each. `floor` launches a kernel of its own on the
+same grid, writing zeros and reading nothing, to be timed.
 """
 
 from __future__ import annotations
@@ -24,6 +30,14 @@ from bdm_tpu_torch.ops.cuda import scatter_sum as _ss
 
 launches = 0
 plain_cuda_calls = 0
+PATHS = ("vec", "scalar")
+launches_vec = 0
+launches_scalar = 0
+
+# the source's split (`bdm_interp_threads`, `bdm_interp_rows`): a block of
+# THREADS threads, ROWS rows a thread
+THREADS = 128
+ROWS = 2
 
 
 def _check_shapes(idx, w, feats) -> None:
@@ -58,7 +72,7 @@ def interp_mm_plain(idx: torch.Tensor, w: torch.Tensor,
 
 
 def _forward(idx, w, feats):
-    global launches
+    global launches, launches_vec, launches_scalar
     if feats.device.type == "cpu":
         return interp_mm_plain(idx, w, feats)
     _lib.check(idx, "idx", (torch.int32,), 3)
@@ -67,12 +81,19 @@ def _forward(idx, w, feats):
     _check_shapes(idx, w, feats)
     b, n, _ = idx.shape
     m, c = feats.shape[1:]
+    if b * n * max(c, 3) >= 2 ** 31 or b * m * c >= 2 ** 31 or b > 65535:
+        raise ValueError(f"interp_mm: B {b}, N {n}, M {m}, C {c} past the "
+                         f"kernel's 32-bit offsets")
     out = torch.empty((b, n, c), dtype=feats.dtype, device=feats.device)
     if c % 8 == 0 and (feats.data_ptr() % 16 or out.data_ptr() % 16):
         raise ValueError("interp_mm: features must be 16-byte aligned")
     _lib.launch("bdm_interp", idx.data_ptr(), w.data_ptr(), feats.data_ptr(),
                 out.data_ptr(), b, n, m, c)
     launches += 1
+    if c % 8:
+        launches_scalar += 1
+    else:
+        launches_vec += 1
     return out
 
 
@@ -96,3 +117,12 @@ class _InterpMM(torch.autograd.Function):
 def interp_mm(idx: torch.Tensor, w: torch.Tensor,
               feats: torch.Tensor) -> torch.Tensor:
     return _InterpMM.apply(idx, w, feats)
+
+
+def floor(b: int, n: int, m: int, c: int, early: bool = True) -> None:
+    """Launch a kernel on the blend's grid (C a multiple of 8) that writes
+    zeros to a (B, N, C) bf16 tensor and reads nothing
+    (`bdm_interp_floor`), with the early launch or without: the floor of
+    the design, to be timed. Not counted in `launches`."""
+    out = torch.empty((b, n, c), dtype=torch.bfloat16, device="cuda")
+    _lib.launch("bdm_interp_floor", out.data_ptr(), b, n, m, c, int(early))

@@ -18,9 +18,7 @@ from __future__ import annotations
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import torch
@@ -34,12 +32,7 @@ SHAPES = [(4096, 1024), (1024, 256), (256, 64), (64, 16), (2048, 1024)]
 
 
 def build_other(csrc: Path) -> ctypes.CDLL:
-    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = Path(tempfile.mkdtemp(dir=_lib.BUILD_DIR)) / "other_three_nn.so"
-    subprocess.run([_lib._nvcc(), *_lib.ARCH_FLAGS, "-std=c++17", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-I", str(csrc),
-                    str(csrc / "three_nn.cu"), "-o", str(out)], check=True)
-    lib = ctypes.CDLL(str(out))
+    lib = _lib.build_source(csrc / "three_nn.cu")
     lib.bdm_three_nn.argtypes = list(_lib._SIGNATURES["bdm_three_nn"])
     return lib
 

@@ -159,13 +159,11 @@ def attention_backward_ms(dtype) -> float:
     return sorted(times[2:])[2]
 
 
-def main() -> None:
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+def forward_calls(b: int = 8, n: int = 4096) -> dict:
+    """PC2's denoise and the fusion model's prediction at production
+    widths (bf16, random weights from seed 0), B `b`, N `n`: name -> a
+    call of one forward."""
     pc2, _, merge = production_models(0)
-    b, n = 8, 4096
     g = torch.Generator().manual_seed(2)
     image = torch.rand(b, 224, 224, 3, generator=g).cuda()
     cond = pc2.prepare_cond(pc2.conditioning_map(image))
@@ -173,16 +171,58 @@ def main() -> None:
     x = (torch.randn(b, n, 3, generator=g) * 0.3).cuda()
     prior = (torch.randn(b, n, 3, generator=g) * 0.3).cuda()
     t = torch.full((b,), 500, dtype=torch.long, device="cuda")
-    calls = {
+    return {
         "pc2_forward": torch.inference_mode()(
             lambda: pc2.denoise(x, t, cam, cond)),
         "fusion_forward": torch.inference_mode()(
             lambda: merge.predict(x, prior, 500, cam, cond, "fusion_nstep")),
     }
+
+
+def gaps_before(call, kernel: str, steps: int = STEPS) -> dict:
+    """Under the profiler, `steps` `call()`s after two of warm-up: for every
+    launch of the device kernel whose name holds `kernel`, the device
+    event that started last before it on the card, and the gap from that
+    event's end to its start (us; 0 or less where the two overlapped).
+    -> launches a call, the events before it by name, the gaps' least,
+    median and largest, and how many were 0 or less."""
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            call()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not dev:
+        raise RuntimeError("the profiler recorded no device time")
+    gaps, before = [], collections.Counter()
+    for prev, evt in zip(dev, dev[1:]):
+        if kernel in evt.name:
+            gaps.append(evt.time_range.start - prev.time_range.end)
+            before[prev.name[:60]] += 1
+    if not gaps:
+        raise RuntimeError(f"no launch of {kernel} in the trace")
+    return {"kernel": kernel, "launches": len(gaps) / steps,
+            "before": dict(before), "gap_us_min": min(gaps),
+            "gap_us_median": statistics.median(gaps),
+            "gap_us_max": max(gaps),
+            "overlapped": sum(gap <= 0 for gap in gaps)}
+
+
+def main() -> None:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    b, n = 8, 4096
+    calls = forward_calls(b, n)
     for name, call in calls.items():
         print(json.dumps({"forward": name, "batch": b, "points": n,
                           **breakdown(call), "card": card}), flush=True)
-    del pc2, merge, calls, cond
+    del calls
     for mp in ("no", "bf16"):
         torch.cuda.empty_cache()
         call = train_step_call(mp, b, n)

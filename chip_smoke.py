@@ -47,7 +47,13 @@ Phases, in the order they run (any failure exits non-zero):
      stage-0 conv at the widths of the options (`STAGE0_CINS`: 391, 392,
      774 and 67 -> 32, R 32) timed beside `F.conv3d`, and the precontract
      tap scatter (bf16 in, float32 out, C 864) bit for bit against the CPU
-     and timed beside `index_add_`;
+     and timed beside `index_add_`; the bf16 blend bit for bit against its
+     plain version at the two FP stages and at the edge shapes of
+     `INTERP_SHAPES` (B 1, N no multiple of a block's rows, C 8, 40, 264,
+     one channel a group at C 12 and 200, M 128), timed back to back and
+     one launch beside `F.embedding_bag`, its grid writing zeros with and
+     without the early launch (`interp.floor`), and the host's cost of
+     enqueueing one call (1,000 calls, no synchronise);
   a'. gradients: each differentiable wrapper forward through its kernel
      and backward on the card, against forward and backward of its plain
      version under PyTorch's own autograd on the card;
@@ -259,7 +265,9 @@ BEFORE_MS = {
     "ball_query N4096 M1024 r0.1": (0.3366, "one launch"),
     "three_nn N4096 M1024": (0.0583, "back to back"),
     "scatter_sum N12288 S1024 C128": (0.1113, "back to back"),
-    "scatter_sum N3072 S256 C256": (0.0240, "back to back")}
+    "scatter_sum N3072 S256 C256": (0.0240, "back to back"),
+    "interp_mm N4096 M1024 C128": (0.0067, "back to back"),
+    "interp_mm N1024 M256 C256": (0.0047, "back to back")}
 
 
 # PC2's stage-0 input widths under the options: mask (391), mask and
@@ -293,6 +301,19 @@ SITES = [(390, 32, 4096), (3, 32, 4096), (32, 32, 4096),
          (256, 16, 1024), (320, 8, 256), (512, 8, 64), (512, 8, 256),
          (TAP_C, 32, 4096)] + [(c, 32, 4096) for c in STAGE0_CINS] + [
              (390, 32, 16384), (32, 32, 16384), (64, 32, 16384)]
+
+# Phase a holds the bf16 blend bit for bit at (B, N, M, C): the two FP
+# stages of the paths, then B 1, N no multiple of a block's rows (64 at
+# C 128: 4,000 = 62 blocks and 32 rows), C 8, 40 and 264 (one, five and
+# 33 groups of 8 channels), C 12 and 200 (one channel a group, "scalar";
+# 200 groups span two passes of a 128-thread block), M 128 (the dispatch's
+# least) and N 300, 64
+INTERP_SHAPES = [(8, 4096, 1024, 128), (8, 1024, 256, 256),
+                 (1, 4096, 1024, 128), (8, 4000, 1024, 128),
+                 (8, 4096, 128, 8), (8, 4096, 256, 40),
+                 (8, 1024, 256, 264), (8, 4096, 128, 12),
+                 (8, 512, 128, 128), (2, 64, 1024, 128),
+                 (8, 300, 1024, 12), (2, 1000, 128, 200)]
 
 # The shapes the paths gave the kernels whose shapes follow the model's
 # widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N).
@@ -534,36 +555,67 @@ def check_kernels(dev):
         # insertion is rare)
         **bound([p0, c0, *nn[4096]], pairs * 9, "f32"))
 
-    # the bf16 blend at the two FP stages that take it: (N, M, C); one
-    # bf16 ulp (2^-8) of the largest output
-    err = 0.0
+    # the bf16 blend, bit for bit against the plain version at the two FP
+    # stages that take it and at the edge shapes of INTERP_SHAPES; the
+    # source's split is the wrapper's
+    if (lib.bdm_interp_threads(), lib.bdm_interp_rows()) != (
+            interp.THREADS, interp.ROWS):
+        fail("interp_mm: the source's split is not `THREADS`, `ROWS`")
+    for bi, n, m, c in INTERP_SHAPES:
+        x = randn(bi, n, 3, scale=0.3)
+        i, w = three_nn.three_nn(x, randn(bi, m, 3, scale=0.3))
+        f = randn(bi, m, c, dtype=torch.bfloat16)
+        if not torch.equal(interp.interp_mm(i, w, f),
+                           interp.interp_mm_plain(i, w, f)):
+            fail(f"interp_mm B={bi} N={n} M={m} C={c}: not the plain "
+                 f"version bit for bit")
     by_shape = {}
     for n, m, c in ((1024, 256, 256), (4096, 1024, 128)):
         i, w = nn[n]
         f = randn(b, m, c, dtype=torch.bfloat16)
         out = interp.interp_mm(i, w, f)
-        err = max(err, rel_err(out, interp.interp_mm_plain(i, w, f), 2 ** -8,
-                               f"interp_mm N={n} M={m} C={c}"))
-        by_shape[f"N{n}_M{m}_C{c}"] = timed_ms(
-            lambda: interp.interp_mm(i, w, f), inner=20)
-    # one PyTorch call for the same blend: a weighted embedding bag over
-    # the flattened (B*M, C) table
-    flat = (i.long() + torch.arange(b, device=dev)[:, None, None] * m
-            ).reshape(-1, 3)
-    wb = w.to(torch.bfloat16).reshape(-1, 3)
-    table = f.reshape(b * m, c)
-    bag = F.embedding_bag(flat, table, per_sample_weights=wb, mode="sum")
-    rel_err(bag.reshape(out.shape), out, 2 ** -7, "embedding_bag yardstick")
+        if not torch.equal(out, interp.interp_mm_plain(i, w, f)):
+            fail(f"interp_mm N={n} M={m} C={c}: not the plain version bit "
+                 f"for bit")
+        # one PyTorch call for the same blend: a weighted embedding bag
+        # over the flattened (B*M, C) table
+        flat = (i.long() + torch.arange(b, device=dev)[:, None, None] * m
+                ).reshape(-1, 3)
+        wb = w.to(torch.bfloat16).reshape(-1, 3)
+        table = f.reshape(b * m, c)
+        bag = F.embedding_bag(flat, table, per_sample_weights=wb,
+                              mode="sum")
+        rel_err(bag.reshape(out.shape), out, 2 ** -7,
+                "embedding_bag yardstick")
+        # the host's cost of enqueueing one call: 1,000 calls on the host
+        # clock with no synchronise (after 100 warm-up calls)
+        for _ in range(100):
+            interp.interp_mm(i, w, f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            interp.interp_mm(i, w, f)
+        enqueue_us = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        by_shape[f"N{n}_M{m}_C{c}"] = dict(
+            ms=timed_ms(lambda: interp.interp_mm(i, w, f), inner=20),
+            ms_one_launch=timed_ms(lambda: interp.interp_mm(i, w, f)),
+            # the same grid and launch writing zeros and reading nothing,
+            # with the early launch and without
+            floor_ms=timed_ms(lambda: interp.floor(b, n, m, c), inner=20),
+            floor_ms_no_early=timed_ms(
+                lambda: interp.floor(b, n, m, c, early=False), inner=20),
+            enqueue_us=enqueue_us,
+            library_ms=timed_ms(lambda: F.embedding_bag(
+                flat, table, per_sample_weights=wb, mode="sum"), inner=20),
+            # three multiply-adds a channel, not the one-hot product's 2*M
+            **bound([i, w, f, out], b * n * c * 6, "f32"))
     res["interp_mm"] = dict(
-        max_abs_err=err,
-        ms=by_shape["N4096_M1024_C128"], ms_by_shape=by_shape,
+        by_shape["N4096_M1024_C128"], max_abs_err=0.0,
+        ms_by_shape=by_shape,
         # unlike the other rows: inputs and the recycled output stay in L2
         timing="20 launches back to back behind a matmul, warm L2",
-        plain_ms=timed_ms(lambda: interp.interp_mm_plain(i, w, f)),
-        library_ms=timed_ms(lambda: F.embedding_bag(
-            flat, table, per_sample_weights=wb, mode="sum"), inner=20),
-        # three multiply-adds a channel, not the one-hot product's 2*M
-        **bound([i, w, f, out], b * n * c * 6, "f32"))
+        plain_ms=timed_ms(lambda: interp.interp_mm_plain(i, w, f)))
 
     # the backward of the blend at the same two stages: 3N float32 rows
     # summed into M centres by the unsorted three-NN indices. The card's
@@ -950,6 +1002,15 @@ def check_kernels(dev):
     print("fps past the registers, one launch, ms:",
           json.dumps(fr["ms_one_launch_large_n"]))
     ss = res["scatter_sum"]["ms_by_shape"]
+    im = res["interp_mm"]["ms_by_shape"]
+    for key, r in im.items():
+        print(f"interp_mm {key}: {r['ms']:.4f} ms back to back "
+              f"({r['bound_ms'] / r['ms']:.1%} of the bound "
+              f"{r['bound_ms']:.5f} ms), {r['ms_one_launch']:.4f} ms one "
+              f"launch; the grid writing zeros {r['floor_ms']:.4f} ms "
+              f"({r['floor_ms_no_early']:.4f} ms without the early "
+              f"launch); embedding_bag {r['library_ms']:.4f} ms; host "
+              f"enqueue {r['enqueue_us']:.2f} us a call")
     redesigned = {
         "fps N4096 M1024": fr,
         "scatter_mean bf16 C390 R32": sm,
@@ -958,7 +1019,9 @@ def check_kernels(dev):
         "ball_query N4096 M1024 r0.1": res["ball_query"],
         "three_nn N4096 M1024": res["three_nn"],
         "scatter_sum N12288 S1024 C128": ss["N12288_S1024_C128"],
-        "scatter_sum N3072 S256 C256": ss["N3072_S256_C256"]}
+        "scatter_sum N3072 S256 C256": ss["N3072_S256_C256"],
+        "interp_mm N4096 M1024 C128": im["N4096_M1024_C128"],
+        "interp_mm N1024 M256 C256": im["N1024_M256_C256"]}
     for key, (before, how) in BEFORE_MS.items():
         r = redesigned[key]
         now = r["ms_one_launch" if how == "one launch" else "ms"]
@@ -2721,9 +2784,9 @@ def main() -> int:
             launches=by_path["pc2_bf16"][name],
             launches_by_path={k: v[name] for k, v in by_path.items()},
             **res[name])
-        if hasattr(mod, "launches_tc"):
+        if hasattr(mod, "PATHS"):
             row["launches_by_kernel"] = {
-                k: {"tc": v[f"{name}_tc"], "simt": v[f"{name}_simt"]}
+                k: {p: v[f"{name}_{p}"] for p in mod.PATHS}
                 for k, v in by_path.items()}
         rows.append(row)
     print(json.dumps({"denoise_step_ms": fwd["pc2_forward"]["ms"],

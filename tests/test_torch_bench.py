@@ -32,6 +32,10 @@ from bdm_tpu_torch.samplers import (NoiseProvider, bdm_blending, bdm_merging,
                                     compute_dtype_of)
 from bdm_tpu_torch.tools.standins import production_models, synthetic_batch
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -246,6 +250,25 @@ def test_check_launches_raises_on_a_breach():
     with pytest.raises(AssertionError, match="plain version"):
         bench.check_launches(dict(counts, fps=(3, 1)), paths,
                              {"fps", "conv3d"}, False)
+
+
+def test_check_launches_refuses_the_scalar_blend():
+    """The models' widths are multiples of 8: a path whose blend took the
+    one-channel kernel has the wrong kernel; its vector launches count by
+    kernel."""
+    counts = {"interp_mm": (2, 0), "conv3d": (1, 0)}
+    paths = {"conv3d": {"tc": 1, "simt": 0},
+             "interp_mm": {"vec": 2, "scalar": 0}}
+    out = bench.check_launches(counts, paths, {"interp_mm", "conv3d"}, False)
+    assert out["interp_mm_vec"] == 2 and out["interp_mm_scalar"] == 0
+    with pytest.raises(AssertionError, match="wrong kernel"):
+        bench.check_launches(counts, dict(paths, interp_mm={"vec": 1,
+                                                            "scalar": 1}),
+                             {"interp_mm", "conv3d"}, False)
+    with pytest.raises(AssertionError, match="in all"):
+        bench.check_launches(counts, dict(paths, interp_mm={"vec": 1,
+                                                            "scalar": 0}),
+                             {"interp_mm", "conv3d"}, False)
 
 
 def test_result_line_keeps_bench_py_keys():

@@ -35,6 +35,10 @@ from bdm_tpu_torch.utils import read_ply
 from tests.test_models import TINY_FP, TINY_SA
 from tests.test_torch_samplers import JaxKeyNoise, _init, _visible_head
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 MILESTONES = [8, 7, 5, 3, 0]
 BASE_ARGS = [
     "dataset=synthetic", "dataset.image_size=16", "dataset.max_points=32",

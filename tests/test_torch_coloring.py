@@ -43,6 +43,10 @@ from bdm_tpu_torch.train import (create_train_state, make_optimizer,
 from bdm_tpu_torch.utils import convert_jax as CJ
 from tests.test_models import TINY_FP, TINY_SA
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 B, N, S = 2, 32, 16
 CFG = dict(image_size=S, image_feature_model="identity",
            raster_point_radius=0.3, predict_shape=False, predict_color=True,

@@ -34,6 +34,10 @@ from bdm_tpu_torch.data.preprocess_pix3d import (load_obj_mesh,
 from tests.test_data import fake_pix3d, fake_r2n2  # noqa: F401 (fixtures)
 from tests.test_torch_config import jax_pointio_private  # noqa: F401
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 CAM_FIELDS = ("R", "T", "focal_length", "principal_point")
 
 

@@ -30,6 +30,10 @@ from bdm_tpu_torch.evaluation.cli import main as eval_main
 from bdm_tpu_torch.utils import write_ply
 from tests import torch_ranks as R
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 
 def clouds(seed, b=3, n=200, m=170, scale=0.3):
     rng = np.random.default_rng(seed)

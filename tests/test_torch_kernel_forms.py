@@ -62,7 +62,17 @@ surrounds the CUDA code and can be said in PyTorch.
     version and the Pallas kernel in interpret mode on random clouds, the
     lattice against its cell centres, centres in duplicate pairs (a higher
     lane may hold the lower index), M no multiple of L U and M < L; and the
-    split rule at the five FP levels of the paths.
+    split rule at the five FP levels of the paths;
+  * the split of the blend kernel (`csrc/interp.cu`): blocks of T threads
+    over rows of one batch element, thread t on channel group t % G of rows
+    t / G + p T / G for p < R, each thread's indices (clamped) and
+    bf16-rounded weights loaded once a row, groups past T in further
+    spans of blocks, the ragged last block, one channel a group where
+    C % 8 != 0;
+    every output element written once, bit for bit the plain version, and
+    within one bf16 rounding of the Pallas `interp_mm` in interpret mode
+    (`tests/test_torch_ops.py::test_interp_mm_plain`'s tolerance); a warp's
+    stores cover whole consecutive rows.
 """
 
 import functools
@@ -80,14 +90,20 @@ from bdm_tpu.ops.pallas.attention import attention_pallas
 from bdm_tpu.ops.pallas.ball_query import ball_query_pallas
 from bdm_tpu.ops.pallas.conv3d import conv3d_pallas
 from bdm_tpu.ops.pallas.fps import furthest_point_sample_pallas
+from bdm_tpu.ops.pallas.interp_mm import interp_mm as jax_interp_mm
 from bdm_tpu.ops.pallas.three_nn import three_nn_pallas
 from bdm_tpu.ops.sampling import furthest_point_sample as jax_fps
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.pvcnn import VoxConv
 from bdm_tpu_torch.ops.cuda import (attention as k_attn,
                                     ball_query as k_bq, conv3d as k_conv,
-                                    fps as k_fps, scatter_sum as k_ss,
+                                    fps as k_fps, interp as k_interp,
+                                    scatter_sum as k_ss,
                                     three_nn as k_tnn, voxelize as k_vox)
+
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -1031,3 +1047,116 @@ def test_three_nn_lowest_lane_is_not_lowest_index(lanes, step, pair):
 def test_three_nn_rule(n, m, rule):
     """The split at the five FP levels of the paths (B 8), and at M < L."""
     assert (k_tnn.lanes(8, n, m), k_tnn.step(m)) == rule
+
+
+def interp_threads(idx, w, feats, threads=None, rows=None):
+    """`interp_kernel` of csrc/interp.cu in PyTorch. With G groups of `vec`
+    channels and H = min(G, T) of them a row in a block, block (x, b, z)
+    covers rows x P R .. (x + 1) P R - 1, P = T // H rows a pass; thread
+    t < P H takes group z T + t % H (z > 0 only where G > T) of rows
+    x P R + t // H + q P, q < R. A thread loads its rows' three indices,
+    clamped to [0, M), and weights, rounded to bf16, once; then the blend
+    in float32 in k order, one rounding. -> (output, how many times each
+    element was written)."""
+    b, n, _ = idx.shape
+    m, c = feats.shape[1:]
+    threads = threads or k_interp.THREADS
+    rows = rows or k_interp.ROWS
+    vec = 8 if c % 8 == 0 else 1
+    groups = c // vec
+    row_groups = min(groups, threads)
+    per_pass = threads // row_groups
+    t = torch.arange(threads)
+    blocks = -(-n // (per_pass * rows))
+    r = (torch.arange(blocks)[:, None, None] * per_pass * rows
+         + torch.arange(rows)[None, :, None] * per_pass
+         + (t // row_groups)[None, None, :])           # (X, R, T)
+    f = feats.reshape(b, m, groups, vec).float()
+    out = torch.zeros(b, n, groups, vec, dtype=torch.bfloat16)
+    hits = torch.zeros(b, n, groups, dtype=torch.int64)
+    bi = torch.arange(b)[:, None, None]
+    for z in range(-(-groups // threads)):             # spans of T groups
+        j = (z * threads + t % row_groups).expand_as(r)
+        live = (t // row_groups < per_pass) & (j < groups) & (r < n)
+        rv, jv = r[live], j[live]
+        ri = idx[:, rv].long().clamp(0, m - 1)         # (B, K, 3)
+        wq = w[:, rv].to(torch.bfloat16).float()
+        g = f[bi, ri, jv[None, :, None]]               # (B, K, 3, vec)
+        acc = g[:, :, 0] * wq[..., 0:1]
+        acc = acc + g[:, :, 1] * wq[..., 1:2]
+        acc = acc + g[:, :, 2] * wq[..., 2:3]
+        out[:, rv, jv] = acc.to(torch.bfloat16)
+        hits.index_put_((bi[..., 0], rv[None], jv[None]),
+                        torch.ones(b, rv.numel(), dtype=torch.int64),
+                        accumulate=True)
+    return out.reshape(b, n, c), hits
+
+
+# (B, N, M, C): the path's group width with N no multiple of a block's
+# rows, five groups (three idle threads a block), one channel a group
+# (scalar) with a ragged tail, 200 groups over two spans of 128 threads,
+# 33 groups, one group of 8 channels
+_INTERP_CASES = [(2, 496, 128, 128), (2, 290, 128, 40), (1, 205, 128, 12),
+                 (2, 64, 160, 200), (2, 256, 128, 264), (2, 512, 128, 8)]
+# ... of which these are also held to the Pallas kernel (a compile each)
+_INTERP_PALLAS = {(2, 496, 128, 128), (1, 205, 128, 12), (2, 256, 128, 264)}
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_case(b, n, m, c):
+    """Indices and weights from three-NN on random clouds, bf16 features
+    and, for the cases of _INTERP_PALLAS, the Pallas kernel's answer in
+    interpret mode."""
+    rng = np.random.default_rng(b * n + m + c)
+    x = rng.standard_normal((b, n, 3)).astype(np.float32)
+    ctr = rng.standard_normal((b, m, 3)).astype(np.float32)
+    f = rng.standard_normal((b, m, c)).astype(np.float32)
+    idx, w = k_tnn.three_nn_plain(torch.from_numpy(x), torch.from_numpy(ctr))
+    fb = torch.from_numpy(f).to(torch.bfloat16)
+    if (b, n, m, c) not in _INTERP_PALLAS:
+        return idx, w, fb, None
+    pallas = jax_interp_mm(jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()),
+                           jnp.asarray(f).astype(jnp.bfloat16))
+    return idx, w, fb, np.asarray(pallas.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("b,n,m,c", _INTERP_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("threads,rows", [(None, None), (256, 1), (512, 4)],
+                         ids=["rule", "T256R1", "T512R4"])
+def test_interp_thread_split(b, n, m, c, threads, rows):
+    """Every output element written once, bit for bit the plain version,
+    within one bf16 rounding of the Pallas kernel in interpret mode."""
+    idx, w, f, pallas = _interp_case(b, n, m, c)
+    out, hits = interp_threads(idx, w, f, threads, rows)
+    assert (hits == 1).all()
+    assert torch.equal(out, k_interp.interp_mm_plain(idx, w, f))
+    if pallas is not None:
+        scale = float(np.abs(pallas).max())
+        np.testing.assert_allclose(out.float().numpy(), pallas, rtol=8e-3,
+                                   atol=8e-3 * scale)
+
+
+def test_interp_clamps_indices():
+    """An index outside [0, M) reads the nearest row of F."""
+    idx, w, f, _ = _interp_case(2, 496, 128, 128)
+    bad = idx.clone()
+    bad[:, ::5, 0] = -3
+    bad[:, 1::7, 2] = 128 + 9
+    out, _ = interp_threads(bad, w, f)
+    assert torch.equal(out, k_interp.interp_mm_plain(bad.clamp(0, 127), w,
+                                                     f))
+
+
+@pytest.mark.parametrize("c", [128, 256, 8, 64])
+def test_interp_warp_rows(c):
+    """At the kernel's block, the lanes of a warp take 32 / G consecutive
+    rows, whole, with groups fastest: one store instruction writes one
+    contiguous span of the output."""
+    groups = c // 8
+    per_pass = k_interp.THREADS // groups
+    for warp in range(k_interp.THREADS // 32):
+        lane = torch.arange(32) + 32 * warp
+        for q in range(k_interp.ROWS):
+            r = lane // groups + q * per_pass
+            flat = r * groups + lane % groups        # 16-byte slots
+            assert torch.equal(flat, flat[0] + torch.arange(32))

@@ -9,8 +9,10 @@ Tolerances: indices exact; float32 results 1e-5 of the largest value (the
 same float32 operations, summed in another order for the conv and
 attention); bfloat16 outputs 1e-2 of the largest value (one bfloat16
 rounding of sums that differ in their last float32 bits); the bf16
-three-neighbour blend 4e-3 (one bfloat16 ulp: its float32 sums are the plain
-version's bit for bit, an FMA of an exact product rounds the same); the
+three-neighbour blend 4e-3 (one bfloat16 ulp) and, at the two FP stages of
+the paths and the edge shapes of `chip_smoke.INTERP_SHAPES`, bit for bit
+(its products and sums are rounded one by one in the plain version's
+order), with the kernel it took ("vec" or the one-channel "scalar"); the
 unsorted segment sum 1e-5 against the card's `index_add_` (atomics, an order
 that changes from run to run) and bit for bit against the CPU's (index
 order, the kernel's own), also with every row on one id, with ids -1 and S
@@ -125,6 +127,26 @@ def test_interp_mm(dev, n, m, c):
     assert _rel(out, k_interp.interp_mm_plain(idx, w, f)) < 4e-3
     with pytest.raises(TypeError):
         k_interp.interp_mm(idx, w, f.float())
+
+
+@pytest.mark.parametrize("b,n,m,c", chip_smoke.INTERP_SHAPES,
+                         ids=lambda v: str(v))
+def test_interp_mm_bit_equal(dev, b, n, m, c):
+    """The blend is the plain version's bit for bit at the two FP stages of
+    the paths and the edge shapes of `chip_smoke.INTERP_SHAPES`, and the
+    call counts under its kernel ("vec", or "scalar" where C % 8 != 0)."""
+    lib = _lib.library()
+    assert (lib.bdm_interp_threads(), lib.bdm_interp_rows()) == (
+        k_interp.THREADS, k_interp.ROWS)
+    x = _cloud(dev, b, n, 3, seed=6)
+    idx, w = k_tnn.three_nn(x, _cloud(dev, b, m, 3, seed=7))
+    f = _cloud(dev, b, m, c, seed=8).to(torch.bfloat16)
+    kernels.reset_counts()
+    out = k_interp.interp_mm(idx, w, f)
+    assert torch.equal(out, k_interp.interp_mm_plain(idx, w, f))
+    path = "scalar" if c % 8 else "vec"
+    assert kernels.path_counts()["interp_mm"] == {
+        p: int(p == path) for p in k_interp.PATHS}
 
 
 def test_launch_counters(dev):
@@ -289,8 +311,9 @@ def test_bf16_calls_take_the_tensor_cores(dev):
     bias = _cloud(dev, 64, seed=8)
     for _ in range(3):
         k_conv.conv3d(x, wt, bias)
-    assert kernels.path_counts() == {"conv3d": {"tc": 3, "simt": 0},
-                                     "attention": {"tc": 1, "simt": 0}}
+    assert kernels.path_counts() == {
+        "conv3d": {"tc": 3, "simt": 0}, "attention": {"tc": 1, "simt": 0},
+        "interp_mm": {"vec": 0, "scalar": 0}}
     assert kernels.counts()["conv3d"] == (3, 0)
     assert k_conv.packs == 1
     with torch.no_grad():

@@ -41,6 +41,10 @@ from tests.test_torch_models import _assert_trees_equal
 from tests.test_torch_samplers import (B, N, S, JaxKeyNoise, _cams, _init,
                                        _visible_head)
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 CFG = dict(image_size=S, image_feature_model="identity",
            raster_point_radius=0.3, point_cloud_model_embed_dim=8)
 TINY = dict(sa_blocks=TINY_SA, fp_blocks=TINY_FP)

@@ -25,6 +25,10 @@ from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig, PVDModel
 from bdm_tpu_torch.utils import convert_jax as CJ
 from tests.test_models import TINY_FP, TINY_SA
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 TINY_VIT = dict(patch_size=4, embed_dim=16, depth=2, num_heads=2)
 
 

@@ -56,6 +56,10 @@ from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
                                     scatter_sum as k_ss, three_nn as k_tnn,
                                     voxelize as k_vox)
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 F32_RTOL = 1e-5
 BF16_TOL = 3e-2
 BF16_ROUNDING = 8e-3

@@ -52,6 +52,10 @@ from tests import torch_ranks as R
 from tests.test_torch_samplers import _camera
 from tests.test_torch_sampling_surface import _np_params
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 B, N, S = 2, 32, 16
 CFG = dict(image_size=S, image_feature_model="identity",
            raster_point_radius=0.3, point_cloud_model_embed_dim=8)

@@ -28,6 +28,10 @@ from bdm_tpu_torch.models import PVCNN2
 from bdm_tpu_torch.samplers import PC2Model, ProjectionConfig
 from tests import torch_ranks as R
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 F32 = 1e-5
 
 

@@ -34,6 +34,10 @@ from bdm_tpu_torch.samplers import (NoiseProvider, PC2Model,
 from bdm_tpu_torch.utils import convert_jax as CJ
 from tests.test_models import TINY_FP, TINY_SA
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 B, N, S = 2, 32, 16
 
 

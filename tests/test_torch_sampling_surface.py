@@ -56,6 +56,10 @@ from tests.test_models import TINY_FP, TINY_SA
 from tests.test_torch_models import TINY_VIT
 from tests.test_torch_samplers import B, N, S, JaxKeyNoise, _cams
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 BASE = dict(image_size=S, image_feature_model="identity",
             raster_point_radius=0.3, point_cloud_model_embed_dim=8)
 

@@ -56,6 +56,10 @@ from tests.test_torch_merging import World
 from tests.test_torch_models import _assert_trees_equal
 from tests.test_torch_samplers import B, N
 
+# tiny tensors: one intra-op thread is faster than many, and six pytest
+# workers on the host's cores do not oversubscribe them
+torch.set_num_threads(1)
+
 T = 1000
 
 
