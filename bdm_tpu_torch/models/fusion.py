@@ -32,6 +32,7 @@ from bdm_tpu_torch.models.layers import (Conv1x1, get_timestep_embedding,
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNNDecoder, PVCNNEncoder,
                                         build_pvcnn2_specs, init_uniform)
+from bdm_tpu_torch.utils.spans import span
 
 MODES = ("fusion_nstep", "fusion_1step")
 
@@ -112,21 +113,22 @@ class PVCNNFuse(nn.Module):
                 mode: str = "fusion_nstep") -> torch.Tensor:
         if mode not in MODES:
             raise ValueError(f"PVCNNFuse: mode {mode!r} not in {MODES}")
-        temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
-        x = recon_inputs_with_cond
-        coords_pc2 = x[..., :3].float()
-        f_pc2, cc_pc2, temb_pc2, coords_list, pc2_skips = self.pc2_encoder(
-            x, coords_pc2, temb)
-        pc2_skips[0] = x[..., 3:]
+        with span("network"):
+            temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
+            x = recon_inputs_with_cond
+            coords_pc2 = x[..., :3].float()
+            f_pc2, cc_pc2, temb_pc2, coords_list, pc2_skips = \
+                self.pc2_encoder(x, coords_pc2, temb)
+            pc2_skips[0] = x[..., 3:]
 
-        coords_pvd = (input_from_prior[..., :3].float()
-                      if mode == "fusion_nstep" else coords_pc2)
-        f_pvd, _, _, _, pvd_skips = self.pvd_encoder(coords_pvd, coords_pvd,
-                                                     temb)
+            coords_pvd = (input_from_prior[..., :3].float()
+                          if mode == "fusion_nstep" else coords_pc2)
+            f_pvd, _, _, _, pvd_skips = self.pvd_encoder(
+                coords_pvd, coords_pvd, temb)
 
-        fused = self.projs[-1](f_pvd) + f_pc2
-        fused_skips = [pc2_skips[0]] + [
-            proj(pvd_s) + pc2_s for proj, pvd_s, pc2_s
-            in zip(self.projs, pvd_skips[1:], pc2_skips[1:])]
-        return self.decoder(fused, cc_pc2, temb_pc2, coords_list,
-                            fused_skips)
+            fused = self.projs[-1](f_pvd) + f_pc2
+            fused_skips = [pc2_skips[0]] + [
+                proj(pvd_s) + pc2_s for proj, pvd_s, pc2_s
+                in zip(self.projs, pvd_skips[1:], pc2_skips[1:])]
+            return self.decoder(fused, cc_pc2, temb_pc2, coords_list,
+                                fused_skips)

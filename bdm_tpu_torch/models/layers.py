@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.parallel.point_sharded import sharded_mean
+from bdm_tpu_torch.utils.spans import span
 
 GN_EPS = 1e-5  # torch.nn.GroupNorm's default, as in the reference
 
@@ -114,18 +115,19 @@ class GroupNormCL(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype=None,
                 group=None) -> torch.Tensor:
-        b, c = x.shape[0], x.shape[-1]
-        g = self.num_groups
-        xf = x.float().reshape(b, -1, g, c // g)
-        if group is None:
-            mean = xf.mean(dim=(1, 3), keepdim=True)
-            var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
-        else:
-            mean = sharded_mean(xf, group)
-            var = sharded_mean((xf - mean).square(), group)
-        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        y = y * self.weight + self.bias
-        return y.to(dtype or x.dtype)
+        with span("groupnorm"):
+            b, c = x.shape[0], x.shape[-1]
+            g = self.num_groups
+            xf = x.float().reshape(b, -1, g, c // g)
+            if group is None:
+                mean = xf.mean(dim=(1, 3), keepdim=True)
+                var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+            else:
+                mean = sharded_mean(xf, group)
+                var = sharded_mean((xf - mean).square(), group)
+            y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+            y = y * self.weight + self.bias
+            return y.to(dtype or x.dtype)
 
 
 class SharedMLP(nn.Module):
@@ -167,10 +169,11 @@ class Attention(nn.Module):
         self.norm = GroupNormCL(num_groups, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or torch.float32
-        h = ops.attention(self.q(x, dt), self.k(x, dt), self.v(x, dt))
-        x = x.to(dt) + self.out(h, dt)
-        return swish(self.norm(x, dt))
+        with span("attention"):
+            dt = self.dtype or torch.float32
+            h = ops.attention(self.q(x, dt), self.k(x, dt), self.v(x, dt))
+            x = x.to(dt) + self.out(h, dt)
+            return swish(self.norm(x, dt))
 
 
 class SE(nn.Module):

@@ -35,6 +35,7 @@ from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, Dropout,
                                          get_timestep_embedding, swish,
                                          timestep_mlp)
 from bdm_tpu_torch.parallel import point_sharded as psh
+from bdm_tpu_torch.utils.spans import span
 
 # (conv_configs, sa_configs) per stage; conv = (out_ch, num_blocks, voxel_res),
 # sa = (num_centers, radius, num_neighbors, mlp_channels)
@@ -205,12 +206,14 @@ class PVConv(nn.Module):
         vl = self.voxel_layers
         dt = self.dtype or torch.float32
         r = self.resolution
-        if group is not None:
-            g = vl[0](psh.sharded_voxel_grid(features, ctx, r, group, dt))
-        elif pre_tap is None:
-            g = vl[0](ops.avg_voxelize(features, ctx, r, out_dtype=dt))
-        else:
+        if group is None and pre_tap is not None:
             g = vl[0].forward_pre_tap(pre_tap, features[..., :3], ctx, r, dt)
+        else:
+            with span("pvconv.voxelize"):
+                g = (ops.avg_voxelize(features, ctx, r, out_dtype=dt)
+                     if group is None else
+                     psh.sharded_voxel_grid(features, ctx, r, group, dt))
+            g = vl[0](g)        # the grid is freed as soon as the conv is done
         g = vl[3](swish(vl[1](g, dt)))
         g = vl[5](vl[4](g), dt)
         if self.attention:
@@ -218,8 +221,10 @@ class PVConv(nn.Module):
             g = vl[6](g.reshape(b, r ** 3, c)).reshape(g.shape)
         else:
             g = swish(g)
-        gate = vl[7](g)                                          # (B, C)
-        vox = ops.trilinear_devoxelize(g, ctx.norm_coords).to(dt)
+        with span("pvconv.se"):
+            gate = vl[7](g)                                      # (B, C)
+        with span("pvconv.devoxelize"):
+            vox = ops.trilinear_devoxelize(g, ctx.norm_coords).to(dt)
         vox = vox * gate[:, None, :].to(dt)
         return vox + self.point_features(features, group).to(dt)
 
@@ -242,17 +247,19 @@ class PointNetSA(nn.Module):
         s = self.spec
         dt = self.dtype or torch.float32
         both = torch.cat([coords.to(dt), features.to(dt)], -1)
-        if group is None:
-            idx = ops.furthest_point_sample(coords, s.num_centers)
-            centers = ops.gather(coords, idx)                    # (B, M, 3)
-            nbr = ops.ball_query(centers, coords, s.radius, s.num_neighbors)
-            both = ops.grouping(both, nbr)                       # (B, M, U, .)
-        else:
-            idx = psh.fps_point_sharded(coords, s.num_centers, group)
-            centers = psh.gather_point_sharded(coords, idx, group)
-            nbr = psh.ball_query_point_sharded(centers, coords, s.radius,
-                                               s.num_neighbors, group)
-            both = psh.grouping_point_sharded(both, nbr, group)
+        with span("sa.group"):
+            if group is None:
+                idx = ops.furthest_point_sample(coords, s.num_centers)
+                centers = ops.gather(coords, idx)                # (B, M, 3)
+                nbr = ops.ball_query(centers, coords, s.radius,
+                                     s.num_neighbors)
+                both = ops.grouping(both, nbr)                   # (B, M, U, .)
+            else:
+                idx = psh.fps_point_sharded(coords, s.num_centers, group)
+                centers = psh.gather_point_sharded(coords, idx, group)
+                nbr = psh.ball_query_point_sharded(centers, coords, s.radius,
+                                                   s.num_neighbors, group)
+                both = psh.grouping_point_sharded(both, nbr, group)
         nbr_feats = torch.cat(
             [both[..., :3] - centers[:, :, None, :].to(dt), both[..., 3:]],
             dim=-1)
@@ -274,8 +281,9 @@ class PointNetFP(nn.Module):
         """Replicated coarse centres and features; with `group` the fine
         points (and `skip`) are a shard: the blend is local to it."""
         dt = self.dtype or torch.float32
-        f = ops.three_nn_interpolate(fine_coords, coarse_coords,
-                                     coarse_features)
+        with span("fp.interpolate"):
+            f = ops.three_nn_interpolate(fine_coords, coarse_coords,
+                                         coarse_features)
         n = fine_coords.shape[1]
         parts = [f.to(dt), temb[:, None, :].to(dt).expand(-1, n, -1)]
         if skip.shape[-1] > 0:
@@ -294,8 +302,9 @@ def _voxel_convs(convs, features, coords, pre_tap=None, group=None):
     serves the first; `group`: the stage's points are a shard."""
     if convs:
         r = convs[0].resolution
-        ctx = (ops.make_voxel_context(coords, r) if group is None
-               else psh.sharded_voxel_context(coords, r, group))
+        with span("voxel.context"):
+            ctx = (ops.make_voxel_context(coords, r) if group is None
+                   else psh.sharded_voxel_context(coords, r, group))
         for p, conv in enumerate(convs):
             features = conv(features, ctx, pre_tap if p == 0 else None,
                             group)
@@ -495,16 +504,18 @@ class PVCNN2(nn.Module):
                 pre_tap: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`pre_tap` (B, N, 27 * Cout0): stage 0's first conv in its
         precontracted form."""
-        group, groups = self.sp_group, None
-        if group is not None:
-            groups = self.sp_groups(inputs.shape[1]
-                                    * dist.get_world_size(group))
-            if pre_tap is not None or groups[0] is None:
-                pre_tap = (None if pre_tap is None
-                           else psh.all_rows(pre_tap, group))
-                return psh.own_rows(self._forward(
-                    psh.all_rows(inputs, group), t, pre_tap, None), group)
-        return self._forward(inputs, t, pre_tap, groups)
+        with span("network"):
+            group, groups = self.sp_group, None
+            if group is not None:
+                groups = self.sp_groups(inputs.shape[1]
+                                        * dist.get_world_size(group))
+                if pre_tap is not None or groups[0] is None:
+                    pre_tap = (None if pre_tap is None
+                               else psh.all_rows(pre_tap, group))
+                    return psh.own_rows(self._forward(
+                        psh.all_rows(inputs, group), t, pre_tap, None),
+                        group)
+            return self._forward(inputs, t, pre_tap, groups)
 
     def _forward(self, inputs, t, pre_tap, groups) -> torch.Tensor:
         temb = self.embedf(get_timestep_embedding(self.embed_dim, t))

@@ -37,6 +37,7 @@ from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
                                         PVCNN2, tap_weights)
 from bdm_tpu_torch.models.simple import PVCNN2PlusPlus, SimplePointModel
 from bdm_tpu_torch.samplers.noise import NoiseProvider, TrainNoise
+from bdm_tpu_torch.utils.spans import span
 
 
 def compute_dtype_of(mixed_precision: str) -> Optional[torch.dtype]:
@@ -374,9 +375,12 @@ class PC2Model(ProjectionConditioned):
         backbone's parameters; the samplers call it under
         `inference_mode`."""
         if isinstance(cond, PrecontractedCond):
-            x_in, tap = self._precontracted_input(x_t, camera, cond)
+            with span("pc2.condition"):
+                x_in, tap = self._precontracted_input(x_t, camera, cond)
             return self.backbone(x_in, t, pre_tap=tap)
-        return self.backbone(self.x_t_input(x_t, camera, cond), t)
+        with span("pc2.condition"):
+            x_in = self.x_t_input(x_t, camera, cond)
+        return self.backbone(x_in, t)
 
     # -------------------------------------------------------------- training
     def loss(self, batch: Dict[str, Any], noise: TrainNoise) -> torch.Tensor:
@@ -403,10 +407,11 @@ class PC2Model(ProjectionConditioned):
         for j, t in enumerate(timesteps):
             tb = torch.full((b,), int(t), dtype=torch.long, device=x.device)
             eps = self.denoise(x, tb, camera, cond)
-            if scheduler == "ddim":
-                x = sched.step(eps, int(t), x, noise(j, n), eta)
-            else:
-                x = sched.step(eps, int(t), x, noise(j, n))
+            with span("pc2.update"):
+                if scheduler == "ddim":
+                    x = sched.step(eps, int(t), x, noise(j, n), eta)
+                else:
+                    x = sched.step(eps, int(t), x, noise(j, n))
         return x
 
     @torch.inference_mode()

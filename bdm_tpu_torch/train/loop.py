@@ -6,7 +6,6 @@ metric logging, on one process or on the ranks of a data-parallel group.
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Callable, Iterable, Optional
 
@@ -22,11 +21,6 @@ from bdm_tpu_torch.train.step import make_train_step
 
 class NaNLossError(RuntimeError):
     pass
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _first_bad(first_bad: torch.Tensor, group) -> int:
@@ -46,8 +40,7 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
                log_step_freq: int = 20,
                logger: Optional[MetricLogger] = None,
                callbacks: Optional[list] = None,
-               profile_dir: Optional[str] = None,
-               profile_steps: tuple = (10, 20), group=None) -> TrainState:
+               group=None) -> TrainState:
     """Run up to `max_steps` steps over an iterator of model-form batches
     ({"image", "camera", "points"} tensors on the model's device); `noise`
     is the `TrainNoise` every step draws from.
@@ -55,8 +48,7 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
     The host never waits for a step: the loss stays on the device, and a
     device-side record of the first step whose loss was not finite is
     updated every step and read at the log cadence, so a NaN raises
-    `NaNLossError` naming the step it happened at. With `profile_dir` a
-    `torch.profiler` trace of steps [profile_steps) is written there.
+    `NaNLossError` naming the step it happened at.
 
     With `group` (data parallel, `make_train_step`) every rank of it reads
     the same global batches and the same noise and takes its rows
@@ -73,7 +65,6 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
     callbacks = callbacks or []
     device = next(state.model.parameters()).device
     first_bad = torch.full((), -1, dtype=torch.long, device=device)
-    prof = None
 
     t_start = time.time()
     start_step = state.step
@@ -85,14 +76,6 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
         bad = ~torch.isfinite(metrics["loss"]) & (first_bad < 0)
         first_bad = torch.where(bad, torch.full_like(first_bad, step),
                                 first_bad)
-
-        if profile_dir is not None:
-            if step == profile_steps[0] and prof is None:
-                _sync(device)   # the trace starts on an idle device
-                prof = torch.profiler.profile()
-                prof.start()
-            elif step >= profile_steps[1] and prof is not None:
-                prof = _stop_profile(prof, profile_dir, device)
 
         if step % log_step_freq == 0 or step == max_steps:
             bad_step = _first_bad(first_bad, group)
@@ -115,8 +98,6 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
         for cb in callbacks:
             cb(step, state, metrics)
 
-    if prof is not None:
-        _stop_profile(prof, profile_dir, device)
     bad_step = _first_bad(first_bad, group)
     if bad_step >= 0:
         raise NaNLossError(f"Loss is not finite at step {bad_step}.")
@@ -124,10 +105,3 @@ def train_loop(state: TrainState, loss_fn: Callable, data_iter: Iterable,
         save_checkpoint(checkpoint_dir, state)
     return state
 
-
-def _stop_profile(prof, profile_dir: str, device: torch.device) -> None:
-    _sync(device)   # the traced steps have finished on the device
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    return None
