@@ -252,11 +252,12 @@ def path_kernels(specs, n_points: int, dtype, global_att: bool) -> set:
     ball query at every SA stage, three-NN at every FP stage,
     scatter-mean and conv3d where a stage has PVConvs, attention where a
     site passes `ops.attention.uses_kernel`, `interp_mm` where an FP
-    stage's blend passes `ops.interpolate.uses_onehot`."""
+    stage's blend passes `ops.interpolate.uses_onehot`, and GroupNorm at
+    every norm."""
     import torch
     from bdm_tpu_torch.ops.attention import uses_kernel
     from bdm_tpu_torch.ops.interpolate import uses_onehot
-    names, levels = set(), [n_points]
+    names, levels = {"groupnorm"}, [n_points]
     for stage in specs.sa_stages:
         for conv in stage.convs:
             names |= {"scatter_mean", "conv3d"}

@@ -19,7 +19,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bdm_tpu_torch import ops
-from bdm_tpu_torch.parallel.point_sharded import sharded_mean
 from bdm_tpu_torch.utils.spans import span
 
 GN_EPS = 1e-5  # torch.nn.GroupNorm's default, as in the reference
@@ -98,13 +97,16 @@ class Conv1x1(nn.Module):
 class GroupNormCL(nn.Module):
     """GroupNorm over the last (channel) axis of (B, ..., C): statistics
     over every non-batch position and the channels of a group, in float32;
-    the output is cast to `dtype` (default: the input's).
+    the output is cast to `dtype` (default: the input's), then passed
+    through SiLU where `silu` asks for it.
 
     With `group`, x is this rank's shard of a (B, N, ...) tensor whose point
     axis is split evenly over the ranks of that process group: the
-    statistics are those of the whole, in two passes as the unsharded
-    formula takes them, the mean and then the mean of squared deviations,
-    each a SUM over the ranks (differentiable)."""
+    statistics are those of the whole (differentiable).
+
+    Every call goes to `ops.group_norm`, which owns the choice of form: the
+    plain one on the CPU, the kernel pair of `csrc/groupnorm.cu` on the
+    card."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = GN_EPS):
         super().__init__()
@@ -113,21 +115,11 @@ class GroupNormCL(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, dtype=None,
-                group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None, group=None,
+                silu: bool = False) -> torch.Tensor:
         with span("groupnorm"):
-            b, c = x.shape[0], x.shape[-1]
-            g = self.num_groups
-            xf = x.float().reshape(b, -1, g, c // g)
-            if group is None:
-                mean = xf.mean(dim=(1, 3), keepdim=True)
-                var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
-            else:
-                mean = sharded_mean(xf, group)
-                var = sharded_mean((xf - mean).square(), group)
-            y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-            y = y * self.weight + self.bias
-            return y.to(dtype or x.dtype)
+            return ops.group_norm(x, self.weight, self.bias, self.num_groups,
+                                  self.eps, dtype, silu, group)
 
 
 class SharedMLP(nn.Module):
@@ -149,7 +141,7 @@ class SharedMLP(nn.Module):
         dt = self.dtype or torch.float32
         for i in range(0, len(self.layers), 3):
             x = self.layers[i](x, dt)
-            x = swish(self.layers[i + 1](x, dt, group))
+            x = self.layers[i + 1](x, dt, group, silu=True)
         return x
 
 
@@ -173,7 +165,7 @@ class Attention(nn.Module):
             dt = self.dtype or torch.float32
             h = ops.attention(self.q(x, dt), self.k(x, dt), self.v(x, dt))
             x = x.to(dt) + self.out(h, dt)
-            return swish(self.norm(x, dt))
+            return self.norm(x, dt, silu=True)
 
 
 class SE(nn.Module):

@@ -32,7 +32,7 @@ import torch.nn as nn
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, Dropout,
                                          GroupNormCL, SharedMLP,
-                                         get_timestep_embedding, swish,
+                                         get_timestep_embedding,
                                          timestep_mlp)
 from bdm_tpu_torch.parallel import point_sharded as psh
 from bdm_tpu_torch.utils.spans import span
@@ -214,13 +214,12 @@ class PVConv(nn.Module):
                      if group is None else
                      psh.sharded_voxel_grid(features, ctx, r, group, dt))
             g = vl[0](g)        # the grid is freed as soon as the conv is done
-        g = vl[3](swish(vl[1](g, dt)))
-        g = vl[5](vl[4](g), dt)
+        g = vl[3](vl[1](g, dt, silu=True))
+        # the voxel attention takes the norm without its SiLU
+        g = vl[5](vl[4](g), dt, silu=not self.attention)
         if self.attention:
             b, c = g.shape[0], g.shape[-1]
             g = vl[6](g.reshape(b, r ** 3, c)).reshape(g.shape)
-        else:
-            g = swish(g)
         with span("pvconv.se"):
             gate = vl[7](g)                                      # (B, C)
         with span("pvconv.devoxelize"):

@@ -14,7 +14,8 @@ channel groups) and "scalar" (one channel).
 from __future__ import annotations
 
 from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, fps,
-                                    interp, scatter_sum, three_nn, voxelize)
+                                    groupnorm, interp, scatter_sum, three_nn,
+                                    voxelize)
 from bdm_tpu_torch.ops.cuda._lib import build
 
 _PALLAS = "bdm_tpu/ops/pallas/"
@@ -42,6 +43,9 @@ KERNELS = {
                f"{_PALLAS}conv3d.py:582"),
     "attention": (attention, "bdm_tpu_torch/csrc/attention.cu",
                   "bdm_tpu/ops/pallas/attention.py:43"),
+    "groupnorm": (groupnorm, "bdm_tpu_torch/csrc/groupnorm.cu",
+                  "none: bdm_tpu/models/layers.py's GroupNorm is flax "
+                  "nn.GroupNorm (jnp), not Pallas"),
 }
 
 

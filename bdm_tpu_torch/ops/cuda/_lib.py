@@ -42,6 +42,11 @@ _SIGNATURES = {
                         _P),
     "bdm_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "bdm_groupnorm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                      _P),
+    "bdm_groupnorm_stats": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "bdm_groupnorm_apply": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                            _I, _I, _P),
     # the sources' own rules, which the wrappers mirror
     "bdm_attention_path": (_I, _I, _I),
     "bdm_conv3d_path": (_I, _I, _I, _I),
@@ -54,6 +59,7 @@ _SIGNATURES = {
     "bdm_interp_rows": (),
     "bdm_scatter_mean_vec": (_I, _I, _I),
     "bdm_scatter_mean_lanes": (_I, _I, _I),
+    "bdm_groupnorm_chunks": (_I, _I, _I, _I),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

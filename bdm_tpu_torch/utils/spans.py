@@ -18,8 +18,8 @@ _GLUE = "point ops and glue: ops/*.py and PyTorch, cuDNN calls"
 _KERNELS = "kernels: ops/cuda/ and csrc/"
 NAMES = {"network": _MODEL, "pc2.condition": _MODEL, "pc2.update": _LOOP,
          "voxel.context": _GLUE, "pvconv.voxelize": _GLUE,
-         "pvconv.se": _GLUE, "pvconv.devoxelize": _GLUE, "groupnorm": _GLUE,
-         "attention": _KERNELS, "sa.group": _KERNELS,
+         "pvconv.se": _GLUE, "pvconv.devoxelize": _GLUE,
+         "groupnorm": _KERNELS, "attention": _KERNELS, "sa.group": _KERNELS,
          "fp.interpolate": _KERNELS}
 
 _ON = False

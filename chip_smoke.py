@@ -53,10 +53,17 @@ Phases, in the order they run (any failure exits non-zero):
      one channel a group at C 12 and 200, M 128), timed back to back and
      one launch beside `F.embedding_bag`, its grid writing zeros with and
      without the early launch (`interp.floor`), and the host's cost of
-     enqueueing one call (1,000 calls, no synchronise);
+     enqueueing one call (1,000 calls, no synchronise); GroupNorm at
+     every (S, C) of `GN_SHAPES`, float32 and bf16, with and without its
+     SiLU, against the float32 plain form (float32 within 1e-5 of the
+     largest value, bf16 within one bf16 rounding of each element), and at
+     the paths' largest site (S 32,768, C 64, bf16 + SiLU) at B 8 and B 64
+     timed against its bound and its two-pass floor, beside the plain form
+     and `F.group_norm` on a channels-first copy;
   a'. gradients: each differentiable wrapper forward through its kernel
      and backward on the card, against forward and backward of its plain
-     version under PyTorch's own autograd on the card;
+     version under PyTorch's own autograd on the card (GroupNorm + SiLU
+     too);
   d. tiny BDM-Blending, BDM-Merging, BDM-Blending with `precontract`,
      PC2 `sample` with PNDM and PC2 `sample` with the mask, its distance
      transform and global features, through the kernels against the same
@@ -126,7 +133,7 @@ Phases, in the order they run (any failure exits non-zero):
      process's two steps on the 8 rows (loss within 1e-5 relative, the
      gradient norm within 1e-4, every parameter within 1e-5 of its tensor's
      largest entry over a floor of 1e-6 of the model's largest), one bf16
-     step (all eight kernels, `scatter_sum` twice); the Chamfer distance of
+     step (all nine kernels, `scatter_sum` twice); the Chamfer distance of
      16 x 4,096 points with pred's points split over the ranks against the
      dense one (1e-5 relative); PC2's denoise at B 8, N 4,096 and 16,384,
      float32, with the point axis sharded over the ranks, against the
@@ -315,16 +322,39 @@ INTERP_SHAPES = [(8, 4096, 1024, 128), (8, 1024, 256, 256),
                  (8, 512, 128, 128), (2, 64, 1024, 128),
                  (8, 300, 1024, 12), (2, 1000, 128, 200)]
 
+# ... and GroupNorm at (S, C), S the positions of a sample: those of PC2
+# and PVD on 4,096 points, PVD on 2,048, PC2 on 16,384 and 8,192 (phase n's
+# unsharded reference and its shards), PVD at twice the width on 2,048
+# points; each is held at float32 and bf16
+GN_SHAPES = [(16, 512), (64, 256), (256, 128), (256, 256), (512, 128),
+             (512, 256), (512, 512), (1024, 64), (1024, 128), (1024, 256),
+             (2048, 128), (2048, 256), (4096, 32), (4096, 64), (4096, 128),
+             (8192, 64), (8192, 128), (32768, 32), (32768, 64),
+             (2048, 32), (2048, 64), (16384, 32), (16384, 64), (16384, 128),
+             (8192, 32),
+             (16, 1024), (64, 512), (256, 512), (512, 1024), (1024, 512),
+             (2048, 512), (4096, 256), (8192, 256), (32768, 128)]
+
 # The shapes the paths gave the kernels whose shapes follow the model's
-# widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N).
-SEEN = {"conv3d": set(), "attention": set(), "scatter_mean": set()}
+# widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N),
+# groupnorm (S, C, dtype).
+SEEN = {"conv3d": set(), "attention": set(), "scatter_mean": set(),
+        "groupnorm": set()}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
 
 
 def record_shapes():
     """From here on (the phases at production widths) every launch of
-    conv3d, attention and scatter_mean notes its shape in SEEN."""
-    from bdm_tpu_torch.ops.cuda import attention, conv3d, voxelize
+    conv3d, attention, scatter_mean and GroupNorm notes its shape in
+    SEEN."""
+    from bdm_tpu_torch.ops.cuda import attention, conv3d, groupnorm, voxelize
     keys = {
+        "groupnorm": (groupnorm, lambda x, *_: (
+            x.numel() // (x.shape[0] * x.shape[-1]), x.shape[-1],
+            _dtype_name(x.dtype))),
         "conv3d": (conv3d, lambda x, w, b: (x.shape[-1], w.shape[0],
                                             x.shape[1])),
         "attention": (attention, lambda q, k, v: tuple(q.shape[1:])),
@@ -360,8 +390,8 @@ def check_kernels(dev):
     import torch.nn.functional as F
     from bdm_tpu_torch import ops
     from bdm_tpu_torch.ops.cuda import (_lib, attention, ball_query, conv3d,
-                                        fps, interp, scatter_sum, three_nn,
-                                        voxelize)
+                                        fps, groupnorm, interp, scatter_sum,
+                                        three_nn, voxelize)
 
     g = torch.Generator().manual_seed(SEED)
 
@@ -949,6 +979,82 @@ def check_kernels(dev):
               for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)))
     res["attention"]["max_abs_err"] = max(res["attention"]["max_abs_err"],
                                           wide["max_abs_err"], odd)
+
+    # GroupNorm at every shape of the paths, float32 and bf16, with and
+    # without SiLU, against the float32 plain form: float32 within 1e-5 of
+    # the largest value (the last bits of the statistics, the fast exp of
+    # the SiLU), bf16 within one bf16 rounding of each element over those
+    # last bits
+    gn_checked = set()
+    gn_worst = 0.0
+    for s_, c_ in GN_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = randn(2, s_, c_, scale=1.7, dtype=dt) + 0.4
+            w, bias = randn(c_), randn(c_)
+            for silu in (False, True):
+                out = groupnorm.group_norm(x, w, bias, 8, 1e-5, silu=silu)
+                ref = groupnorm.group_norm_plain(x.float(), w, bias, 8, 1e-5,
+                                                 torch.float32, silu)
+                err = (out.float() - ref).abs()
+                top = ref.abs().max()
+                lim = (1e-5 * top if dt == torch.float32
+                       else 2 ** -8 * ref.abs() + 1e-5 * top)
+                if out.dtype != dt or (err > lim).any():
+                    fail(f"groupnorm S={s_} C={c_} {dt} silu={silu}: "
+                         f"max|err| {err.max().item()} past its limit")
+                gn_worst = max(gn_worst, (err.max() / top).item())
+            gn_checked.add((s_, c_, _dtype_name(dt)))
+    print(f"groupnorm: {len(GN_SHAPES)} path shapes x float32, bf16 x "
+          f"SiLU or not within their limits, worst max|err| / max|ref| "
+          f"{gn_worst:.3e}")
+
+    # GroupNorm + SiLU at the paths' largest site, S 32,768 (an R-32 grid;
+    # 1,024 centres of 32 neighbours), C 64, bf16, at B 8 and B 64: within
+    # one bf16 rounding of the float32 form (and the last bits of its
+    # statistics); the plain form, and `F.group_norm` on a channels-first
+    # copy (bf16 affine, no SiLU). The bound reads x and writes the output
+    # once (4 bytes an element); the two-pass design's floor reads x twice
+    # (6 bytes an element)
+    def gn_times(bb):
+        x = randn(bb, 32768, 64, scale=1.7, dtype=torch.bfloat16)
+        w, bias = randn(64), randn(64)
+        out = groupnorm.group_norm(x, w, bias, 8, 1e-5, silu=True)
+        ref = groupnorm.group_norm_plain(x.float(), w, bias, 8, 1e-5,
+                                         torch.float32, True)
+        err = (out.float() - ref).abs()
+        if (err > 2 ** -8 * ref.abs() + 1e-5 * ref.abs().max()).any():
+            fail(f"groupnorm B={bb}: {err.max().item()} past one bf16 "
+                 f"rounding of the float32 form")
+        xcf = x.transpose(1, 2).contiguous()
+        wb, bb16 = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+        return dict(
+            ms=timed_ms(lambda: groupnorm.group_norm(
+                x, w, bias, 8, 1e-5, silu=True), inner=10),
+            ms_one_launch=timed_ms(lambda: groupnorm.group_norm(
+                x, w, bias, 8, 1e-5, silu=True)),
+            ms_no_silu=timed_ms(lambda: groupnorm.group_norm(
+                x, w, bias, 8, 1e-5), inner=10),
+            plain_ms=timed_ms(lambda: groupnorm.group_norm_plain(
+                x, w, bias, 8, 1e-5, None, True)),
+            library_ms=timed_ms(lambda: F.group_norm(xcf, 8, wb, bb16, 1e-5),
+                                inner=10),
+            max_abs_err=err.max().item(),
+            two_pass_floor_ms=6 * x.numel() / HBM_BYTES_PER_S * 1e3,
+            **bound([x, out], 0, "f32"))
+
+    res["groupnorm"] = dict(gn_times(8), b64_s32768_c64=gn_times(64),
+                            timing="10 launches back to back behind a matmul")
+    res["groupnorm"]["max_abs_err"] = max(res["groupnorm"]["max_abs_err"],
+                                          gn_worst)
+    for key, r in (("B 8", res["groupnorm"]),
+                   ("B 64", res["groupnorm"]["b64_s32768_c64"])):
+        print(f"groupnorm {key} S 32768 C 64 bf16 + SiLU: {r['ms']:.4f} ms "
+              f"back to back ({r['bound_ms'] / r['ms']:.1%} of the bound "
+              f"{r['bound_ms']:.5f} ms, {r['two_pass_floor_ms'] / r['ms']:.1%}"
+              f" of the two-pass floor {r['two_pass_floor_ms']:.5f} ms), "
+              f"{r['ms_one_launch']:.4f} ms one call, without SiLU "
+              f"{r['ms_no_silu']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
+              f"F.group_norm channels-first {r['library_ms']:.4f} ms")
     for name, r in res.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1033,7 +1139,7 @@ def check_kernels(dev):
               f"PyTorch call (zero_().index_add_) {r['library_ms']:.4f} ms, "
               f"{r['library_ms'] / r['ms']:.2f}x; bound {r['bound_ms']:.5f}")
     return res, {"conv3d": set(convs), "attention": set(attns),
-                 "scatter_mean": set(SITES)}
+                 "scatter_mean": set(SITES), "groupnorm": gn_checked}
 
 
 def check_gradients(dev):
@@ -1049,8 +1155,8 @@ def check_gradients(dev):
     `scatter_sum` is the blend's backward, so that comparison holds it."""
     import torch
     from bdm_tpu_torch import ops
-    from bdm_tpu_torch.ops.cuda import (attention, conv3d, interp, three_nn,
-                                        voxelize)
+    from bdm_tpu_torch.ops.cuda import (attention, conv3d, groupnorm, interp,
+                                        three_nn, voxelize)
     g = torch.Generator().manual_seed(SEED + 7)
     b = 8
 
@@ -1109,6 +1215,18 @@ def check_gradients(dev):
                     attention.attention_plain,
                     [randn(b, 4096, c, scale=0.3, dtype=dt)
                      for _ in range(3)], tol)
+    # GroupNorm's backward recomputes the normalised input from the
+    # statistics the apply kernel used
+    for (s, c), dt, silu, tol in (((32768, 64), torch.bfloat16, True, 1e-2),
+                                  ((32768, 64), torch.float32, True, 1e-4),
+                                  ((4096, 128), torch.float32, False, 1e-4),
+                                  ((16, 512), torch.bfloat16, True, 1e-2)):
+        compare(f"groupnorm S={s} C={c} {dt} silu={silu}",
+                partial(groupnorm.group_norm, groups=8, eps=1e-5, silu=silu),
+                partial(groupnorm.group_norm_plain, groups=8, eps=1e-5,
+                        silu=silu),
+                [randn(b, s, c, scale=1.7, dtype=dt), randn(c, scale=0.5),
+                 randn(c, scale=0.5)], tol)
     centers = ops.gather(pts, ops.furthest_point_sample(pts, 1024))
     idx, w = three_nn.three_nn(pts, centers.contiguous())
     compare("interp_mm N=4096 M=1024 C=128 bf16",
@@ -1709,7 +1827,7 @@ def pc2_training(dev, mixed_precision, steps=4):
     `train_loop` on one repeated batch with one repeated draw of timesteps
     and noise, so the loss of that batch must fall. Float32 takes the
     gather form of the blend (no `interp_mm`, hence no `scatter_sum`); at
-    bf16 compute all eight kernels launch, `scatter_sum` twice a step (the
+    bf16 compute all nine kernels launch, `scatter_sum` twice a step (the
     backward of the two bf16 FP stages)."""
     import itertools
 
@@ -2780,7 +2898,7 @@ def main() -> int:
         row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             # of this slice's main path, the four bf16 training steps of
-            # PC2, where all eight launch; every path's own count follows
+            # PC2, where all nine launch; every path's own count follows
             launches=by_path["pc2_bf16"][name],
             launches_by_path={k: v[name] for k, v in by_path.items()},
             **res[name])

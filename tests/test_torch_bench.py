@@ -226,7 +226,8 @@ def _specs(quick, precision):
 
 
 def test_path_kernels_follow_the_dispatch_rules():
-    sampling = {"fps", "ball_query", "three_nn", "scatter_mean", "conv3d"}
+    sampling = {"fps", "ball_query", "three_nn", "scatter_mean", "conv3d",
+                "groupnorm"}
     # production bf16: the S 4096 voxel attention and the bf16 blend at
     # the two FP stages with M >= 128
     assert _specs(False, "bf16") == sampling | {"attention", "interp_mm"}
@@ -250,6 +251,22 @@ def test_check_launches_raises_on_a_breach():
     with pytest.raises(AssertionError, match="plain version"):
         bench.check_launches(dict(counts, fps=(3, 1)), paths,
                              {"fps", "conv3d"}, False)
+
+
+def test_check_launches_refuses_groupnorm_in_its_plain_form():
+    """GroupNorm trains and shards through its kernel pair: a path whose
+    norms ran the plain form on the card, or never launched the kernel,
+    breaks the check like any other kernel."""
+    counts = {"conv3d": (4, 0), "groupnorm": (126, 0)}
+    paths = {"conv3d": {"tc": 4, "simt": 0}}
+    out = bench.check_launches(counts, paths, {"conv3d", "groupnorm"}, False)
+    assert out["groupnorm"] == 126
+    with pytest.raises(AssertionError, match="plain version of groupnorm"):
+        bench.check_launches(dict(counts, groupnorm=(126, 63)), paths,
+                             {"conv3d", "groupnorm"}, False)
+    with pytest.raises(AssertionError, match="kernel groupnorm launched 0"):
+        bench.check_launches(dict(counts, groupnorm=(0, 63)), paths,
+                             {"conv3d", "groupnorm"}, False)
 
 
 def test_check_launches_refuses_the_scalar_blend():

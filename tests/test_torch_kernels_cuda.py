@@ -1,4 +1,4 @@
-"""The eight Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
+"""The nine Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
 versions, on the card. Without a CUDA device every test here skips (a
 CUDA kernel has no CPU mode). This file imports torch only, so it also
 runs where JAX is not installed:
@@ -35,7 +35,14 @@ float32 sums in the same order). Float32 attention and conv3d are held at
 every shape `chip_smoke.py` lists for the paths (`ATTNS`, `CONVS`), FPS past
 the points a thread holds in registers (`FPS_LARGE`, up to N 40,000), and a
 float32 PC2 loss with dropout on is a function of its `TrainNoise` seed
-(1e-6 relative).
+(1e-6 relative). GroupNorm + SiLU at every (S, C) a production PC2 and PVD
+forward hands it, float32 within 1e-5 of the largest value (the last bits
+of its statistics, the fast exp of the SiLU), bf16 within one bf16 rounding
+of the float32 form at every element; on an offset 1e3 times the spread;
+bit-equal over two calls; 63 calls of two launches in a bf16 PC2 forward,
+with and without autograd; its gradients at every path shape against
+autograd through the plain form; the point-sharded norm on two ranks
+against the unsharded one, forward and backward.
 """
 
 import importlib.util
@@ -50,7 +57,7 @@ from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (_lib, attention as k_attn,
                                     ball_query as k_bq,
                                     conv3d as k_conv, fps as k_fps,
-                                    interp as k_interp,
+                                    groupnorm as k_gn, interp as k_interp,
                                     scatter_sum as k_ss, three_nn as k_tnn,
                                     voxelize as k_vox)
 
@@ -691,3 +698,220 @@ def test_data_parallel_step_on_two_ranks(dev, tmp_path):
             assert plain == 0, name
             if name not in ("interp_mm", "scatter_sum", "attention"):
                 assert launches > 0, name
+
+
+# ---------------------------------------------------------- GroupNorm
+
+def _gn_calls(net, *args):
+    """(S, C, silu) of every GroupNormCL call of one forward."""
+    from bdm_tpu_torch.models.layers import GroupNormCL
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda m, a, kw, o: calls.append(
+            (a[0].numel() // (a[0].shape[0] * a[0].shape[-1]),
+             a[0].shape[-1], kw.get("silu", False))), with_kwargs=True)
+        for m in net.modules() if isinstance(m, GroupNormCL)]
+    with torch.inference_mode():
+        net(*args)
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+@pytest.fixture(scope="module")
+def gn_sites():
+    """The (S, C) a bf16 PC2 (387 extra channels) and PVD forward hand
+    GroupNorm at B 2, N 4096, collected by forward hooks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from bdm_tpu_torch.models.pvcnn import PVCNN2
+    dev = torch.device("cuda")
+    sites = set()
+    for extra in (387, 0):
+        net = PVCNN2(extra_feature_channels=extra,
+                     dtype=torch.bfloat16).to(dev)
+        net.reset_parameters(0)
+        x = _cloud(dev, 2, 4096, 3 + extra, seed=extra) * 0.3
+        sites |= {(s, c) for s, c, _ in _gn_calls(
+            net, x, torch.tensor([500, 20], device=dev))}
+    return sorted(sites)
+
+
+def _gn_within_one_rounding(got, x, w, b, silu):
+    """bf16 output within one bf16 rounding of the float32 form, each
+    element (2^-8 of itself), over the last bits of the float32
+    statistics (1e-5 of the largest value)."""
+    ref = k_gn.group_norm_plain(x.float(), w, b, 8, 1e-5, torch.float32,
+                                silu)
+    err = (got.float() - ref).abs()
+    return bool((err <= 2 ** -8 * ref.abs() + 1e-5 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("silu", [False, True], ids=["norm", "norm+silu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_groupnorm_at_path_shapes(dev, gn_sites, dtype, silu):
+    assert len(gn_sites) >= 10, gn_sites
+    for k, (s, c) in enumerate(gn_sites):
+        x = (_cloud(dev, 2, s, c, seed=k) * 1.7 + 0.4).to(dtype)
+        w = _cloud(dev, c, seed=k + 100)
+        b = _cloud(dev, c, seed=k + 200)
+        kernels.reset_counts()
+        got = k_gn.group_norm(x, w, b, 8, 1e-5, silu=silu)
+        assert kernels.counts()["groupnorm"] == (2, 0)
+        assert got.dtype == dtype and got.shape == x.shape
+        want = k_gn.group_norm_plain(x, w, b, 8, 1e-5, dtype, silu)
+        if dtype == torch.float32:
+            assert _rel(got, want) <= 1e-5, (s, c)
+        else:
+            assert _gn_within_one_rounding(got, x, w, b, silu), (s, c)
+            assert _rel(got, want) <= 1e-2, (s, c)
+
+
+@pytest.mark.parametrize("s,c", [(1000, 24), (37, 40), (5, 512),
+                                 (4097, 64), (100, 2048)], ids=str)
+def test_groupnorm_ragged_shapes(dev, s, c):
+    """A last chunk of one row, C no power of two (a 16-byte vector across
+    groups), a row a block's pass, one chunk a sample."""
+    x = (_cloud(dev, 3, s, c, seed=s) * 2.0).to(torch.bfloat16)
+    w, b = _cloud(dev, c, seed=1), _cloud(dev, c, seed=2)
+    got = k_gn.group_norm(x, w, b, 8, 1e-5, silu=True)
+    assert _gn_within_one_rounding(got, x, w, b, True), (s, c)
+
+
+def test_groupnorm_offset_far_above_the_spread(dev):
+    """x = 1000 + N(0, 1) in float32: E[x^2] - mean^2 loses the variance
+    (checked here on the same data); the kernel is within 1e-4 of a
+    float64 evaluation (the float32 mean's own rounding, 3e-5 at 1000)."""
+    x = 1000.0 + _cloud(dev, 4, 32768, 64, seed=3)
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    got = k_gn.group_norm(x, w, b, 8, 1e-5)
+    want = k_gn.group_norm_plain(x.double(), w.double(), b.double(), 8, 1e-5,
+                                 torch.float64)
+    assert _rel(got, want) <= 1e-4
+    xg = x.reshape(4, -1, 8, 8)
+    naive = xg.square().mean((1, 3)) - xg.mean((1, 3)) ** 2
+    assert (naive - xg.double().var((1, 3), unbiased=False)).abs().max() > 1e-2
+
+
+def test_groupnorm_two_calls_bit_equal(dev):
+    x = _cloud(dev, 8, 32768, 64, seed=4).to(torch.bfloat16)
+    w, b = _cloud(dev, 64, seed=5), _cloud(dev, 64, seed=6)
+    first = k_gn.group_norm(x, w, b, 8, 1e-5, silu=True)
+    assert torch.equal(first, k_gn.group_norm(x, w, b, 8, 1e-5, silu=True))
+
+
+def test_groupnorm_split_is_the_sources(dev):
+    lib = _lib.library()
+    for dt in (torch.float32, torch.bfloat16):
+        for s in (0, 1, 16, 4097, 32768, 2 ** 25):
+            for c in (8, 12, 24, 32, 64, 512, 1024, 2048, 4096):
+                for g in (1, 8, 16, 33):
+                    assert lib.bdm_groupnorm_chunks(
+                        s, c, g, _lib.DTYPE_CODES[dt]) == k_gn.chunks(
+                            s, c, g, dt), (s, c, g, dt)
+
+
+def test_groupnorm_refuses(dev):
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    x = _cloud(dev, 2, 16, 64).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_gn.group_norm(x.transpose(0, 1), w, b, 8, 1e-5)
+    with pytest.raises(ValueError, match="not a shape"):
+        k_gn.group_norm(x, w, b, 7, 1e-5)
+    with pytest.raises(TypeError):
+        k_gn.group_norm(x.half(), w, b, 8, 1e-5)
+    with pytest.raises(TypeError, match="keep x's type"):
+        k_gn.group_norm(x, w, b, 8, 1e-5, torch.float32)
+    shifted = torch.empty(x.numel() + 4, dtype=x.dtype, device=dev)[4:]
+    with pytest.raises(ValueError, match="aligned"):
+        k_gn.group_norm(shifted.view(x.shape), w, b, 8, 1e-5)
+
+
+def test_groupnorm_launches_in_a_bf16_pc2_forward(dev):
+    """Every GroupNorm of a bf16 PC2 forward takes the kernel (two launches
+    a call, 63 calls, no plain call), under autograd too."""
+    from bdm_tpu_torch.models.pvcnn import PVCNN2
+    net = PVCNN2(extra_feature_channels=387, dtype=torch.bfloat16).to(dev)
+    net.reset_parameters(0)
+    x = _cloud(dev, 2, 4096, 390, seed=7) * 0.3
+    t = torch.tensor([500, 20], device=dev)
+    kernels.reset_counts()
+    calls = _gn_calls(net, x, t)
+    assert len(calls) == 63 and sum(c[2] for c in calls) == 62
+    assert kernels.counts()["groupnorm"] == (63 * k_gn.LAUNCHES_A_CALL, 0)
+    kernels.reset_counts()
+    net(x, t).sum().backward()
+    assert kernels.counts()["groupnorm"] == (63 * k_gn.LAUNCHES_A_CALL, 0)
+    assert all(torch.isfinite(p.grad).all() for p in net.parameters()
+               if p.requires_grad)
+
+
+@pytest.mark.parametrize("silu", [False, True], ids=["norm", "norm+silu"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+def test_groupnorm_backward_at_path_shapes(dev, gn_sites, dtype, tol, silu):
+    """x's, the weight's and the bias's gradients through the kernel pair
+    and its backward against PyTorch's autograd through the plain form on
+    the card, within `tol` of each gradient's largest entry (float32: sums
+    in another order; bf16: the plain form rounds the affine to bf16
+    before its SiLU, the kernel after)."""
+    for k, (s, c) in enumerate(gn_sites):
+        x = (_cloud(dev, 2, s, c, seed=k) * 1.7 + 0.4).to(dtype)
+        w = _cloud(dev, c, seed=k + 100) * 0.5 + 1
+        b = _cloud(dev, c, seed=k + 200) * 0.5
+        cot = _cloud(dev, 2, s, c, seed=k + 300)
+        grads = []
+        for fn in (k_gn.group_norm, k_gn.group_norm_plain):
+            ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            (fn(*ins, 8, 1e-5, silu=silu).float() * cot).sum().backward()
+            grads.append([t.grad for t in ins])
+        for got, want in zip(*grads):
+            assert got.dtype == want.dtype, (s, c)
+            assert _rel(got, want) <= tol, (s, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sharded_groupnorm_on_two_ranks(dev, tmp_path, dtype):
+    """The point-sharded norm through the kernel pair on two ranks spawned
+    on the card (a shard of 4,096 of 8,192 points each): every rank's
+    statistics are the whole's, so its output rows are the unsharded
+    kernel's (float32 within 1e-5 of the largest value, bf16 within one
+    bf16 rounding of the float32 form), x's gradient rows within 1e-4 and
+    the sum of the ranks' weight and bias gradients within 1e-4 of the
+    unsharded ones (float32, bf16 1e-2); each rank launched the kernel
+    twice a call and ran no plain form."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ranks as R
+    c = 64
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randn(2, 8192, c, generator=g) * 1.7 + 0.4).to(dtype)
+    w = torch.randn(c, generator=g) * 0.5 + 1
+    b = torch.randn(c, generator=g) * 0.5
+    cot = torch.randn(2, 8192, c, generator=g)
+    outs = R.run(R.cuda_gn_rank, 2, tmp_path,
+                 {"x": x, "w": w, "b": b, "cot": cot})
+    ins = [t.to(dev).requires_grad_(True) for t in (x, w, b)]
+    want = k_gn.group_norm(*ins, 8, 1e-5, silu=True)
+    (want.float() * cot.to(dev)).sum().backward()
+    ref = k_gn.group_norm_plain(x.to(dev).float(), w.to(dev), b.to(dev), 8,
+                                1e-5, torch.float32, True)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    half = 8192 // 2
+    for r, o in enumerate(outs):
+        rows = slice(r * half, (r + 1) * half)
+        assert o["counts"] == (2 * k_gn.LAUNCHES_A_CALL, 0), o["counts"]
+        assert o["again_equal"], r
+        y = o["y"].to(dev)
+        assert y.dtype == dtype, r
+        if dtype == torch.float32:
+            assert _rel(y, want[:, rows]) <= 1e-5, r
+        else:
+            err = (y.float() - ref[:, rows]).abs()
+            lim = 2 ** -8 * ref[:, rows].abs() + 1e-5 * ref.abs().max()
+            assert bool((err <= lim).all()), r
+        assert _rel(o["dx"].to(dev), ins[0].grad[:, rows]) <= tol, r
+    assert _rel(sum(o["dw"] for o in outs).to(dev), ins[1].grad) <= tol
+    assert _rel(sum(o["db"] for o in outs).to(dev), ins[2].grad) <= tol

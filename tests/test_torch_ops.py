@@ -52,7 +52,7 @@ from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
                                     conv3d as k_conv, fps as k_fps,
-                                    interp as k_interp,
+                                    groupnorm as k_gn, interp as k_interp,
                                     scatter_sum as k_ss, three_nn as k_tnn,
                                     voxelize as k_vox)
 
@@ -596,9 +596,11 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.voxel_conv3d(g, torch.zeros(4, 3, 3, 3, 3), torch.zeros(4))
     k_attn.attention(x, x, x)
     k_ss.scatter_sum(x, torch.zeros(1, 64, dtype=torch.int32), 2)
+    k_gn.group_norm(x.repeat(1, 1, 8)[..., :16], torch.ones(16),
+                    torch.zeros(16), 8, 1e-5, silu=True)
     assert set(kernels.counts()) == {
         "fps", "ball_query", "three_nn", "interp_mm", "scatter_mean",
-        "scatter_sum", "conv3d", "attention"}
+        "scatter_sum", "conv3d", "attention", "groupnorm"}
     assert all(c == (0, 0) for c in kernels.counts().values()), \
         kernels.counts()
 
@@ -619,8 +621,10 @@ def test_cpu_tensors_take_the_plain_versions():
                             t.new_zeros((4, 3, 3, 3, 3)), t.new_zeros(4)),
     lambda t: k_ss.scatter_sum(t, t.new_zeros((1, 16), dtype=torch.int32),
                                4),
+    lambda t: k_gn.group_norm(t.new_zeros((1, 16, 8)), t.new_ones(8),
+                              t.new_zeros(8), 8, 1e-5),
 ], ids=["fps", "ball_query", "three_nn", "interp_mm", "attention",
-        "scatter_mean", "conv3d", "scatter_sum"])
+        "scatter_mean", "conv3d", "scatter_sum", "groupnorm"])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor off the CPU launches the kernel or raises; here (no CUDA
     device) a meta tensor must raise, not run the plain version."""

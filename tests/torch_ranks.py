@@ -168,6 +168,30 @@ def cuda_dp_rank(d):
                 "backend": dist.get_backend()})
 
 
+def cuda_gn_rank(d):
+    """The point-sharded GroupNorm + SiLU through the kernel pair on the
+    card: this rank's rows of the output, of x's gradient, its part of the
+    weight's and bias's gradients, and the GroupNorm counts of the two
+    calls (forward under autograd, then under no_grad)."""
+    from bdm_tpu_torch.ops import cuda as kernels
+    from bdm_tpu_torch.ops.cuda import groupnorm
+    inp = _start(d, "cuda")
+    group = dist.group.WORLD
+    x = psh.own_rows(inp["x"], group).contiguous().requires_grad_(True)
+    w = inp["w"].clone().requires_grad_(True)
+    b = inp["b"].clone().requires_grad_(True)
+    kernels.reset_counts()
+    y = groupnorm.group_norm(x, w, b, 8, 1e-5, silu=True, group=group)
+    (y.float() * psh.own_rows(inp["cot"], group)).sum().backward()
+    with torch.no_grad():
+        again = groupnorm.group_norm(x, w, b, 8, 1e-5, silu=True,
+                                     group=group)
+    _finish(d, {"y": y.detach().cpu(), "dx": x.grad.cpu(),
+                "dw": w.grad.cpu(), "db": b.grad.cpu(),
+                "counts": kernels.counts()["groupnorm"],
+                "again_equal": bool(torch.equal(again, y.detach()))})
+
+
 # ---------------------------------------------------- point sharding
 
 def _shards(x, group):
