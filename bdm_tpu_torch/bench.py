@@ -252,15 +252,15 @@ def path_kernels(specs, n_points: int, dtype, global_att: bool) -> set:
     ball query at every SA stage, three-NN at every FP stage,
     scatter-mean and conv3d where a stage has PVConvs, attention where a
     site passes `ops.attention.uses_kernel`, `interp_mm` where an FP
-    stage's blend passes `ops.interpolate.uses_onehot`, and GroupNorm at
-    every norm."""
+    stage's blend passes `ops.interpolate.uses_onehot`, GroupNorm at
+    every norm and the gated devoxelization at every PVConv."""
     import torch
     from bdm_tpu_torch.ops.attention import uses_kernel
     from bdm_tpu_torch.ops.interpolate import uses_onehot
     names, levels = {"groupnorm"}, [n_points]
     for stage in specs.sa_stages:
         for conv in stage.convs:
-            names |= {"scatter_mean", "conv3d"}
+            names |= {"scatter_mean", "conv3d", "devox"}
             if conv.attention and uses_kernel(conv.resolution ** 3,
                                               conv.out_channels):
                 names.add("attention")
@@ -274,7 +274,7 @@ def path_kernels(specs, n_points: int, dtype, global_att: bool) -> set:
                        levels[-2 - k]):
             names.add("interp_mm")
         if stage.convs:
-            names |= {"scatter_mean", "conv3d"}
+            names |= {"scatter_mean", "conv3d", "devox"}
     return names
 
 

@@ -177,7 +177,8 @@ class PVConv(nn.Module):
     """Point-voxel conv (`modules/pvconv.py:65-97`): voxelize -> [conv ->
     GN -> swish -> dropout -> conv -> GN -> attention | swish] ->
     devoxelize, gated by SE on the points, plus the pointwise SharedMLP
-    branch.
+    branch: the devoxelization, the gate and the sum are one call
+    (`ops.gated_devoxelize`).
 
     Voxel grids run in the compute dtype (bf16 in production); geometry
     stays float32."""
@@ -222,10 +223,11 @@ class PVConv(nn.Module):
             g = vl[6](g.reshape(b, r ** 3, c)).reshape(g.shape)
         with span("pvconv.se"):
             gate = vl[7](g)                                      # (B, C)
+        pf = self.point_features(features, group)
+        # under `group` the grid is replicated and the points local: the
+        # same call
         with span("pvconv.devoxelize"):
-            vox = ops.trilinear_devoxelize(g, ctx.norm_coords).to(dt)
-        vox = vox * gate[:, None, :].to(dt)
-        return vox + self.point_features(features, group).to(dt)
+            return ops.gated_devoxelize(g, ctx.norm_coords, gate, pf)
 
 
 class PointNetSA(nn.Module):

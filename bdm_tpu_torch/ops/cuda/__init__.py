@@ -13,9 +13,9 @@ channel groups) and "scalar" (one channel).
 
 from __future__ import annotations
 
-from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, fps,
-                                    groupnorm, interp, scatter_sum, three_nn,
-                                    voxelize)
+from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, devox,
+                                    fps, groupnorm, interp, scatter_sum,
+                                    three_nn, voxelize)
 from bdm_tpu_torch.ops.cuda._lib import build
 
 _PALLAS = "bdm_tpu/ops/pallas/"
@@ -46,6 +46,9 @@ KERNELS = {
     "groupnorm": (groupnorm, "bdm_tpu_torch/csrc/groupnorm.cu",
                   "none: bdm_tpu/models/layers.py's GroupNorm is flax "
                   "nn.GroupNorm (jnp), not Pallas"),
+    "devox": (devox, "bdm_tpu_torch/csrc/devox.cu",
+              "none: bdm_tpu/ops/voxelize.py's trilinear_devoxelize is jnp, "
+              "not Pallas"),
 }
 
 

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "bdm_groupnorm_stats": (_P, _P, _I, _I, _I, _I, _I, _P),
     "bdm_groupnorm_apply": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _I, _I, _P),
+    "bdm_devox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # the sources' own rules, which the wrappers mirror
     "bdm_attention_path": (_I, _I, _I),
     "bdm_conv3d_path": (_I, _I, _I, _I),

@@ -3,9 +3,11 @@
 The voxel context (normalized coordinates, voxel ids, their stable sort and
 the run start of every voxel in the sorted order) depends on the
 coordinates alone and is shared by every PVConv of a stage. The
-scatter-mean runs in the `csrc/voxelize.cu` kernel; devoxelization is plain
-PyTorch. Both differentiate in the features; the geometry carries no
-gradient.
+scatter-mean runs in the `csrc/voxelize.cu` kernel; devoxelization, with
+PVConv's gate and residual, in the `csrc/devox.cu` kernel
+(`ops/cuda/devox.py`: `gated_devoxelize`, and `trilinear_devoxelize`, the
+float32 sample of its plain version, which the tests hold to `bdm_tpu`).
+Both differentiate in the features; the geometry carries no gradient.
 """
 
 from __future__ import annotations
@@ -90,33 +92,3 @@ def scatter_mean_contributions(features: torch.Tensor, ctx: VoxelContext,
     b, c = features.shape[0], features.shape[-1]
     return avg_voxelize(features, ctx, resolution, torch.float32).reshape(
         b, resolution ** 3, c)
-
-
-def trilinear_devoxelize(grid: torch.Tensor,
-                         norm_coords: torch.Tensor) -> torch.Tensor:
-    """Sample (B, R, R, R, C) at float coords in [0, R-1] -> (B, N, C)
-    float32. The upper corner along an axis is used only when its
-    fractional part is > 0 (`trilinear_devox.cu` corner rule)."""
-    b, r = grid.shape[:2]
-    c = grid.shape[-1]
-    n = norm_coords.shape[1]
-    lo_f = torch.floor(norm_coords)
-    frac = norm_coords - lo_f
-    lo = lo_f.long()
-    step = (frac > 0).long()
-    flat = grid.reshape(b, r ** 3, c)
-    strides = (r * r, r, 1)
-    base = lo[..., 0] * strides[0] + lo[..., 1] * strides[1] + lo[..., 2]
-    out = torch.zeros((b, n, c), dtype=torch.float32, device=grid.device)
-    for dx in (0, 1):
-        for dy in (0, 1):
-            for dz in (0, 1):
-                idx = (base + dx * step[..., 0] * strides[0]
-                       + dy * step[..., 1] * strides[1]
-                       + dz * step[..., 2] * strides[2])
-                w = ((frac[..., 0] if dx else 1.0 - frac[..., 0])
-                     * (frac[..., 1] if dy else 1.0 - frac[..., 1])
-                     * (frac[..., 2] if dz else 1.0 - frac[..., 2]))
-                vals = torch.gather(flat, 1, idx[..., None].expand(b, n, c))
-                out = out + w[..., None] * vals.float()
-    return out

@@ -59,11 +59,19 @@ Phases, in the order they run (any failure exits non-zero):
      largest value, bf16 within one bf16 rounding of each element), and at
      the paths' largest site (S 32,768, C 64, bf16 + SiLU) at B 8 and B 64
      timed against its bound and its two-pass floor, beside the plain form
-     and `F.group_norm` on a channels-first copy;
+     and `F.group_norm` on a channels-first copy; the gated devoxelization
+     bit for bit against its plain version at the 14 PVConvs of a PVCNN2
+     forward (`DEVOX_SHAPES`) and every other shape of the paths
+     (`DEVOX_MORE`), float32 and bf16, at B 8 and B 64, and at the edge
+     shapes of `DEVOX_EDGES` (N no multiple of a block, R odd), then those
+     of a forward at B 64, bf16, each timed against its
+     bound (out, pf, coordinates, gate and the grid rows its corners
+     touch), the plain version and `F.grid_sample` (3-D, align_corners, on
+     a channels-first copy: the sample alone), summed over a forward;
   a'. gradients: each differentiable wrapper forward through its kernel
      and backward on the card, against forward and backward of its plain
      version under PyTorch's own autograd on the card (GroupNorm + SiLU
-     too);
+     and the gated devoxelization too);
   d. tiny BDM-Blending, BDM-Merging, BDM-Blending with `precontract`,
      PC2 `sample` with PNDM and PC2 `sample` with the mask, its distance
      transform and global features, through the kernels against the same
@@ -133,7 +141,8 @@ Phases, in the order they run (any failure exits non-zero):
      process's two steps on the 8 rows (loss within 1e-5 relative, the
      gradient norm within 1e-4, every parameter within 1e-5 of its tensor's
      largest entry over a floor of 1e-6 of the model's largest), one bf16
-     step (all nine kernels, `scatter_sum` twice); the Chamfer distance of
+     step (every kernel; `scatter_sum` twice for the blend and once a
+     PVConv for the devoxelization); the Chamfer distance of
      16 x 4,096 points with pred's points split over the ranks against the
      dense one (1e-5 relative); PC2's denoise at B 8, N 4,096 and 16,384,
      float32, with the point axis sharded over the ranks, against the
@@ -335,11 +344,31 @@ GN_SHAPES = [(16, 512), (64, 256), (256, 128), (256, 256), (512, 128),
              (16, 1024), (64, 512), (256, 512), (512, 1024), (1024, 512),
              (2048, 512), (4096, 256), (8192, 256), (32768, 128)]
 
+# ... and the gated devoxelization at (N, C, R) of the 14 PVConvs of a
+# PVCNN2 forward (PC2 and PVD alike), SA stages then FP stages
+DEVOX_SHAPES = [(4096, 32, 32), (4096, 32, 32), (1024, 64, 16),
+                (256, 128, 8)] + [(64, 256, 8)] * 3 + [(256, 256, 8)] * 3 + [
+                    (1024, 128, 16)] * 2 + [(4096, 64, 32)] * 2
+DEVOX_A_FORWARD = len(DEVOX_SHAPES)
+# ... and at the other (N, C, R) of the paths: the input level's two
+# (R 32, C 32 and 64) of PVD on 2,048 points, of PC2 on 16,384 (phase n's
+# unsharded reference) and of its 8,192-point shards (the 4,096-point
+# cloud's shards are 2,048), those of PVD at twice the width on 2,048
+# points that no other path has, and its input level on 4,096; every shape
+# here and in DEVOX_SHAPES is held at float32 and bf16
+DEVOX_MORE = [(n, c, 32) for n in (2048, 8192, 16384) for c in (32, 64)] + [
+    (2048, 128, 32), (64, 512, 8), (256, 512, 8), (1024, 256, 16),
+    (4096, 128, 32)]
+# ... and at (B, N, C, R) off the paths: N no multiple of a block's points,
+# R odd, C of one to eight 16-byte groups
+DEVOX_EDGES = [(2, 37, 8, 5), (3, 1000, 24, 9), (2, 300, 16, 4),
+               (1, 4095, 64, 32), (2, 77, 40, 7)]
+
 # The shapes the paths gave the kernels whose shapes follow the model's
 # widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N),
-# groupnorm (S, C, dtype).
+# groupnorm (S, C, dtype), devox (N, C, R, dtype).
 SEEN = {"conv3d": set(), "attention": set(), "scatter_mean": set(),
-        "groupnorm": set()}
+        "groupnorm": set(), "devox": set()}
 
 
 def _dtype_name(dtype) -> str:
@@ -348,10 +377,14 @@ def _dtype_name(dtype) -> str:
 
 def record_shapes():
     """From here on (the phases at production widths) every launch of
-    conv3d, attention, scatter_mean and GroupNorm notes its shape in
-    SEEN."""
-    from bdm_tpu_torch.ops.cuda import attention, conv3d, groupnorm, voxelize
+    conv3d, attention, scatter_mean, GroupNorm and the gated
+    devoxelization notes its shape in SEEN."""
+    from bdm_tpu_torch.ops.cuda import (attention, conv3d, devox, groupnorm,
+                                        voxelize)
     keys = {
+        "devox": (devox, lambda grid, x, *_: (
+            x.shape[1], grid.shape[-1], grid.shape[1],
+            _dtype_name(grid.dtype))),
         "groupnorm": (groupnorm, lambda x, *_: (
             x.numel() // (x.shape[0] * x.shape[-1]), x.shape[-1],
             _dtype_name(x.dtype))),
@@ -1055,6 +1088,7 @@ def check_kernels(dev):
               f"{r['ms_one_launch']:.4f} ms one call, without SiLU "
               f"{r['ms_no_silu']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
               f"F.group_norm channels-first {r['library_ms']:.4f} ms")
+    res["devox"], devox_checked = check_devox(dev, randn, rel_err)
     for name, r in res.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1139,7 +1173,100 @@ def check_kernels(dev):
               f"PyTorch call (zero_().index_add_) {r['library_ms']:.4f} ms, "
               f"{r['library_ms'] / r['ms']:.2f}x; bound {r['bound_ms']:.5f}")
     return res, {"conv3d": set(convs), "attention": set(attns),
-                 "scatter_mean": set(SITES), "groupnorm": gn_checked}
+                 "scatter_mean": set(SITES), "groupnorm": gn_checked,
+                 "devox": devox_checked}
+
+
+def check_devox(dev, randn, rel_err):
+    """Phase a's gated devoxelization: bit for bit the plain version at
+    every shape of `DEVOX_SHAPES` and `DEVOX_MORE` (B 8 and B 64) and
+    `DEVOX_EDGES`, float32 and bf16; then each shape of a forward at B 64,
+    bf16, timed: -> (phase a's row, the 14 calls of a forward summed; the
+    (N, C, R, dtype) held, keyed as SEEN)."""
+    import torch
+    import torch.nn.functional as F
+    from bdm_tpu_torch import ops
+    from bdm_tpu_torch.ops.cuda import devox
+
+    def inputs(bb, n, c, r, dt):
+        """Coordinates of a cloud through `normalize_coords`; a quarter of
+        them whole numbers, an eighth at R - 1 along x."""
+        x = ops.normalize_coords(randn(bb, n, 3, scale=0.3), r)[0]
+        q = n // 4
+        x[:, :q] = torch.floor(x[:, :q])
+        x[:, q:q + q // 2, 0] = r - 1
+        return (randn(bb, r, r, r, c, dtype=dt), x.contiguous(),
+                randn(bb, c).sigmoid(), randn(bb, n, c, scale=0.5, dtype=dt))
+
+    held = [(bb, n, c, r) for bb in (8, 64)
+            for n, c, r in sorted(set(DEVOX_SHAPES + DEVOX_MORE))]
+    checked = set()
+    for bb, n, c, r in held + DEVOX_EDGES:
+        for dt in (torch.float32, torch.bfloat16):
+            args = inputs(bb, n, c, r, dt)
+            if not torch.equal(devox.gated_devoxelize(*args),
+                               devox.gated_devoxelize_plain(*args)):
+                fail(f"devox B={bb} N={n} C={c} R={r} {dt}: not the plain "
+                     f"version bit for bit")
+            checked.add((n, c, r, _dtype_name(dt)))
+            del args
+    print(f"devox: {len(held + DEVOX_EDGES)} shapes x float32, bf16 bit "
+          f"for bit")
+
+    def times(n, c, r, b=64):
+        grid, x, gate, pf = inputs(b, n, c, r, torch.bfloat16)
+        out = devox.gated_devoxelize(grid, x, gate, pf)
+        ids = devox.corners(x, r)[0]
+        rows = sum(torch.unique(ids[i]).numel() for i in range(b))
+        nbytes = ((out.numel() + pf.numel() + rows * c) * 2
+                  + (x.numel() + gate.numel()) * 4)
+        # F.grid_sample takes (B, C, D, H, W) and (x, y, z) locations in
+        # [-1, 1] along (W, H, D): the grid's (X, Y, Z) axes as (D, H, W)
+        cf = grid.permute(0, 4, 1, 2, 3).contiguous()
+        loc = (x.flip(-1) / (r - 1) * 2 - 1).reshape(b, 1, 1, n, 3)
+        want = devox.trilinear_devoxelize(grid, x)
+        got = F.grid_sample(cf.float(), loc, align_corners=True)
+        rel_err(got.reshape(b, c, n).transpose(1, 2), want, 1e-5,
+                f"grid_sample yardstick N={n} C={c} R={r}")
+        try:        # the library call in the grid's type where it has one
+            F.grid_sample(cf, loc.to(cf.dtype), align_corners=True)
+            lib_in = (cf, loc.to(cf.dtype))
+        except RuntimeError:
+            lib_in = (cf.float(), loc)
+        return dict(
+            ms=timed_ms(lambda: devox.gated_devoxelize(grid, x, gate, pf),
+                        inner=10),
+            ms_one_launch=timed_ms(
+                lambda: devox.gated_devoxelize(grid, x, gate, pf)),
+            plain_ms=timed_ms(
+                lambda: devox.gated_devoxelize_plain(grid, x, gate, pf)),
+            library_ms=timed_ms(lambda: F.grid_sample(
+                *lib_in, align_corners=True), inner=10),
+            library_dtype=_dtype_name(lib_in[0].dtype),
+            grid_rows_read=rows,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+    by_shape = {f"N{n}_C{c}_R{r}": times(n, c, r)
+                for n, c, r in sorted(set(DEVOX_SHAPES))}
+    row = {k: sum(by_shape[f"N{n}_C{c}_R{r}"][k]
+                  for n, c, r in DEVOX_SHAPES)
+           for k in ("ms", "ms_one_launch", "plain_ms", "library_ms",
+                     "bound_ms")}
+    for key, r in by_shape.items():
+        print(f"devox B 64 {key} bf16: {r['ms']:.4f} ms back to back "
+              f"({r['bound_ms'] / r['ms']:.1%} of the bound "
+              f"{r['bound_ms']:.5f} ms, {r['grid_rows_read']} grid rows "
+              f"read), {r['ms_one_launch']:.4f} ms one launch; plain "
+              f"{r['plain_ms']:.4f} ms; F.grid_sample "
+              f"({r['library_dtype']}) {r['library_ms']:.4f} ms")
+    print(f"devox B 64, the 14 calls of a forward: {row['ms']:.4f} ms back "
+          f"to back ({row['bound_ms'] / row['ms']:.1%} of the bound "
+          f"{row['bound_ms']:.5f} ms), {row['ms_one_launch']:.4f} ms one "
+          f"launch each; plain {row['plain_ms']:.4f} ms; F.grid_sample "
+          f"{row['library_ms']:.4f} ms")
+    return dict(row, bound_by="bytes", max_abs_err=0.0, ms_by_shape=by_shape,
+                timing="B 64 bf16, the 14 calls of a PVCNN2 forward summed; "
+                       "10 launches back to back behind a matmul"), checked
 
 
 def check_gradients(dev):
@@ -1155,8 +1282,8 @@ def check_gradients(dev):
     `scatter_sum` is the blend's backward, so that comparison holds it."""
     import torch
     from bdm_tpu_torch import ops
-    from bdm_tpu_torch.ops.cuda import (attention, conv3d, groupnorm, interp,
-                                        three_nn, voxelize)
+    from bdm_tpu_torch.ops.cuda import (attention, conv3d, devox, groupnorm,
+                                        interp, three_nn, voxelize)
     g = torch.Generator().manual_seed(SEED + 7)
     b = 8
 
@@ -1227,6 +1354,24 @@ def check_gradients(dev):
                         silu=silu),
                 [randn(b, s, c, scale=1.7, dtype=dt), randn(c, scale=0.5),
                  randn(c, scale=0.5)], tol)
+    # the gated devoxelization: its backward scatter-sums the corners' rows
+    # in float32; the plain version runs in float32 (bf16 inputs upcast,
+    # the gradients cast back once), since at bf16 it scatters its corners
+    # with bf16 atomics (1.04e-2 of the largest entry at N 256, C 128, R 8)
+    for (n, c, r), dt, tol in (((4096, 32, 32), torch.float32, 1e-4),
+                               ((4096, 32, 32), torch.bfloat16, 1e-2),
+                               ((1024, 128, 16), torch.float32, 1e-4),
+                               ((256, 128, 8), torch.bfloat16, 1e-2)):
+        x = ops.normalize_coords(randn(b, n, 3, scale=0.3, grad=False), r)[0]
+        compare(f"gated_devoxelize N={n} C={c} R={r} {dt}",
+                partial(lambda x_, *a: devox.gated_devoxelize(
+                    a[0], x_, *a[1:]), x),
+                partial(lambda x_, grid, gate, pf:
+                        devox.gated_devoxelize_plain(grid.float(), x_, gate,
+                                                     pf.float()), x),
+                [randn(b, r, r, r, c, dtype=dt), randn(b, c).sigmoid()
+                 .detach().requires_grad_(True),
+                 randn(b, n, c, scale=0.5, dtype=dt)], tol)
     centers = ops.gather(pts, ops.furthest_point_sample(pts, 1024))
     idx, w = three_nn.three_nn(pts, centers.contiguous())
     compare("interp_mm N=4096 M=1024 C=128 bf16",
@@ -1826,9 +1971,10 @@ def pc2_training(dev, mixed_precision, steps=4):
     """Phase g: PC2 at production widths, B=8, N=4096, `steps` steps of
     `train_loop` on one repeated batch with one repeated draw of timesteps
     and noise, so the loss of that batch must fall. Float32 takes the
-    gather form of the blend (no `interp_mm`, hence no `scatter_sum`); at
-    bf16 compute all nine kernels launch, `scatter_sum` twice a step (the
-    backward of the two bf16 FP stages)."""
+    gather form of the blend (no `interp_mm`); at bf16 compute every kernel
+    launches. `scatter_sum` runs once a PVConv a step (the devoxelization's
+    backward) and, at bf16, twice more (the backward of the two bf16 FP
+    stages)."""
     import itertools
 
     import torch
@@ -1866,9 +2012,8 @@ def pc2_training(dev, mixed_precision, steps=4):
         if not torch.equal(v, vit[k]):
             fail(f"{name}: the frozen feature model moved at {k}")
     f32 = mixed_precision == "no"
-    launches = check_path(name, *counts,
-                          ("interp_mm", "scatter_sum") if f32 else (), f32)
-    if not f32 and launches["scatter_sum"] != 2 * steps:
+    launches = check_path(name, *counts, ("interp_mm",) if f32 else (), f32)
+    if launches["scatter_sum"] != (DEVOX_A_FORWARD + 2 * (not f32)) * steps:
         fail(f"{name}: scatter_sum launched {launches['scatter_sum']} times "
              f"in {steps} steps")
     print(f"{name}: launches a step",
@@ -1935,8 +2080,7 @@ def wide_and_fusion_training(merge, dev):
         fail("PVD x2 never ran its attention at C=128")
     behind_dead = check_gradients_reached("PVD x2", pvd, dead)
     out = {"pvd_x2": dict(
-        launches=check_path("PVD x2", *counts, ("interp_mm", "scatter_sum"),
-                            float32=True),
+        launches=check_path("PVD x2", *counts, ("interp_mm",), float32=True),
         step_ms=ms, peak_gib=peak,
         zero_gradients_behind_dead_gates=behind_dead)}
     del pvd
@@ -2242,8 +2386,9 @@ def coloring_paths(dev):
     every module is float32, and the two configurations' colours agree
     within 1e-5, where the same weights rounded to bf16 move them by more
     than ten times that. Only CUDA-core attention and conv launches, no
-    `interp_mm` (the float32 gather form of the blend) and so no
-    `scatter_sum`. -> {path: {"launches", ...}}."""
+    `interp_mm` (the float32 gather form of the blend), and `scatter_sum`
+    only in training (the devoxelization's backward). -> {path:
+    {"launches", ...}}."""
     import torch
     from bdm_tpu_torch.ops import cuda as kernels
     from bdm_tpu_torch.samplers import ProjectionConfig, TrainNoise
@@ -2323,7 +2468,7 @@ def coloring_paths(dev):
         2)
     out["coloring_train"] = dict(
         step_ms=ms, peak_gib=peak,
-        launches=check_path("coloring training", *counts, unused,
+        launches=check_path("coloring training", *counts, ("interp_mm",),
                             float32=True))
     del model
     torch.cuda.empty_cache()
@@ -2766,7 +2911,7 @@ def parallel_paths(res, dev):
 
     launches = {}
     for name, key, unused, f32 in (
-            ("dp_f32", "dp_counts", ("interp_mm", "scatter_sum"), True),
+            ("dp_f32", "dp_counts", ("interp_mm",), True),
             ("dp_bf16", None, (), False),
             ("sp_4096", "sp4096", ("interp_mm",), True),
             ("sp_16384", "sp16384", ("interp_mm",), True)):
@@ -2776,9 +2921,10 @@ def parallel_paths(res, dev):
             got = check_path(f"{name} (rank {r})", *c, unused, f32)
             if r == 0:
                 launches[name] = got
-    if launches["dp_bf16"]["scatter_sum"] != 2:
+    if launches["dp_bf16"]["scatter_sum"] != 2 + DEVOX_A_FORWARD:
         fail(f"phase n: the bf16 step launched scatter_sum "
-             f"{launches['dp_bf16']['scatter_sum']} times, not 2")
+             f"{launches['dp_bf16']['scatter_sum']} times, not "
+             f"{2 + DEVOX_A_FORWARD}")
     print("phase n launches (rank 0):", json.dumps(launches))
 
     # world 1 over NCCL: the step of one process, through a process group
@@ -2898,7 +3044,8 @@ def main() -> int:
         row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             # of this slice's main path, the four bf16 training steps of
-            # PC2, where all nine launch; every path's own count follows
+            # PC2, where every kernel launches; every path's own count
+            # follows
             launches=by_path["pc2_bf16"][name],
             launches_by_path={k: v[name] for k, v in by_path.items()},
             **res[name])

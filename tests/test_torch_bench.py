@@ -227,7 +227,7 @@ def _specs(quick, precision):
 
 def test_path_kernels_follow_the_dispatch_rules():
     sampling = {"fps", "ball_query", "three_nn", "scatter_mean", "conv3d",
-                "groupnorm"}
+                "groupnorm", "devox"}
     # production bf16: the S 4096 voxel attention and the bf16 blend at
     # the two FP stages with M >= 128
     assert _specs(False, "bf16") == sampling | {"attention", "interp_mm"}

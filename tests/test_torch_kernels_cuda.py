@@ -1,4 +1,4 @@
-"""The nine Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
+"""The Hopper kernels of `bdm_tpu_torch` against their plain PyTorch
 versions, on the card. Without a CUDA device every test here skips (a
 CUDA kernel has no CPU mode). This file imports torch only, so it also
 runs where JAX is not installed:
@@ -42,7 +42,14 @@ of the float32 form at every element; on an offset 1e3 times the spread;
 bit-equal over two calls; 63 calls of two launches in a bf16 PC2 forward,
 with and without autograd; its gradients at every path shape against
 autograd through the plain form; the point-sharded norm on two ranks
-against the unsharded one, forward and backward.
+against the unsharded one, forward and backward. The gated
+devoxelization bit for bit at the 14 PVConv shapes of a forward and the
+other shapes of the paths (`chip_smoke.DEVOX_SHAPES`, `DEVOX_MORE`) at B 8
+and B 64 and at edge shapes (`DEVOX_EDGES`: ragged N, odd R), float32 and
+bf16; NaN from an infinite corner under a zero weight, as the plain
+version; C of no whole 16 bytes refused;
+14 launches in a bf16 PC2 forward; its gradients (f32 1e-4, bf16 1e-2)
+against autograd through the plain version.
 """
 
 import importlib.util
@@ -56,7 +63,8 @@ from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (_lib, attention as k_attn,
                                     ball_query as k_bq,
-                                    conv3d as k_conv, fps as k_fps,
+                                    conv3d as k_conv, devox as k_devox,
+                                    fps as k_fps,
                                     groupnorm as k_gn, interp as k_interp,
                                     scatter_sum as k_ss, three_nn as k_tnn,
                                     voxelize as k_vox)
@@ -915,3 +923,130 @@ def test_sharded_groupnorm_on_two_ranks(dev, tmp_path, dtype):
         assert _rel(o["dx"].to(dev), ins[0].grad[:, rows]) <= tol, r
     assert _rel(sum(o["dw"] for o in outs).to(dev), ins[1].grad) <= tol
     assert _rel(sum(o["db"] for o in outs).to(dev), ins[2].grad) <= tol
+
+
+# ------------------------------------------------- gated devoxelization
+
+def _devox_inputs(dev, b, n, c, r, dtype, seed=0):
+    """Coordinates of a cloud through `normalize_coords`, a quarter of them
+    whole numbers and an eighth at R - 1 along x; a grid, a gate in (0, 1)
+    and a point branch."""
+    x = ops.normalize_coords(_cloud(dev, b, n, 3, seed=seed) * 0.3, r)[0]
+    q = n // 4
+    x[:, :q] = torch.floor(x[:, :q])
+    x[:, q:q + q // 2, 0] = r - 1
+    return (_cloud(dev, b, r, r, r, c, seed=seed + 1).to(dtype),
+            x.contiguous(), _cloud(dev, b, c, seed=seed + 2).sigmoid(),
+            (_cloud(dev, b, n, c, seed=seed + 3) * 0.5).to(dtype))
+
+
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_devox_bit_equal_at_path_shapes(dev, dtype, b):
+    """The kernel is the plain version bit for bit at the (N, C, R) of the
+    14 PVConvs of a PVCNN2 forward and of the other paths
+    (`chip_smoke.DEVOX_SHAPES`, `DEVOX_MORE`), one launch a call, no plain
+    call."""
+    shapes = sorted(set(chip_smoke.DEVOX_SHAPES + chip_smoke.DEVOX_MORE))
+    for k, (n, c, r) in enumerate(shapes):
+        args = _devox_inputs(dev, b, n, c, r, dtype, seed=10 * k)
+        kernels.reset_counts()
+        got = k_devox.gated_devoxelize(*args)
+        assert kernels.counts()["devox"] == (1, 0)
+        assert got.dtype == dtype and got.shape == args[3].shape
+        assert torch.equal(got, k_devox.gated_devoxelize_plain(*args)), (
+            n, c, r)
+
+
+@pytest.mark.parametrize("b,n,c,r", chip_smoke.DEVOX_EDGES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_devox_bit_equal_at_edge_shapes(dev, dtype, b, n, c, r):
+    """N no multiple of a block's points, R odd, C of one to eight
+    16-byte groups."""
+    args = _devox_inputs(dev, b, n, c, r, dtype, seed=n)
+    got = k_devox.gated_devoxelize(*args)
+    assert torch.equal(got, k_devox.gated_devoxelize_plain(*args))
+
+
+def test_devox_non_finite_corner_at_zero_weight(dev):
+    """Every corner is read: an infinite grid value under a whole-numbered
+    coordinate (weight 1 on it, 0 on its upper corner, which is itself)
+    gives NaN, as the plain version's 0 * inf does."""
+    grid, x, gate, pf = _devox_inputs(dev, 2, 64, 16, 8, torch.float32)
+    x[:, :4] = 3.0
+    grid[:, 3, 3, 3] = float("inf")
+    got = k_devox.gated_devoxelize(grid, x, gate, pf)
+    want = k_devox.gated_devoxelize_plain(grid, x, gate, pf)
+    assert torch.isnan(got[:, :4]).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_devox_refuses(dev):
+    grid, x, gate, pf = _devox_inputs(dev, 2, 64, 16, 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_devox.gated_devoxelize(grid.transpose(2, 3), x, gate, pf)
+    with pytest.raises(TypeError):
+        k_devox.gated_devoxelize(grid.half(), x, gate, pf.half())
+    with pytest.raises(ValueError):
+        k_devox.gated_devoxelize(grid, x[:, :32].contiguous(), gate, pf)
+    shifted = torch.empty(pf.numel() + 4, dtype=pf.dtype, device=dev)[4:]
+    with pytest.raises(ValueError, match="aligned"):
+        k_devox.gated_devoxelize(grid, x, gate, shifted.view(pf.shape))
+    with pytest.raises(ValueError, match="16 bytes"):
+        k_devox.gated_devoxelize(grid[..., :12].contiguous(), x,
+                                 gate[:, :12].contiguous(),
+                                 pf[..., :12].contiguous())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+def test_devox_backward_at_path_shapes(dev, dtype, tol):
+    """The grid's, the gate's and pf's gradients through the kernel and
+    its backward (the corners' rows scatter-summed into their voxels by
+    `scatter_sum`) against PyTorch's autograd through the plain version in
+    float32 on the card (bf16 inputs upcast, the gradients cast back once:
+    the plain version at bf16 scatters its corners with bf16 atomics, whose
+    own error read 1.04e-2 of the largest entry at (256, 128, 8)), within
+    `tol` of each gradient's largest entry (float32: sums in another
+    order, the plain gather's backward with atomics; bf16: one rounding of
+    the float32 sums), B 8."""
+    def plain(grid, x, gate, pf):
+        return k_devox.gated_devoxelize_plain(grid.float(), x, gate,
+                                              pf.float())
+
+    for k, (n, c, r) in enumerate(sorted(set(chip_smoke.DEVOX_SHAPES))):
+        grid, x, gate, pf = _devox_inputs(dev, 8, n, c, r, dtype, seed=k)
+        cot = _cloud(dev, 8, n, c, seed=k + 50)
+        grads = []
+        for fn in (k_devox.gated_devoxelize, plain):
+            ins = [t.clone().requires_grad_(True) for t in (grid, gate, pf)]
+            (fn(ins[0], x, *ins[1:]).float() * cot).sum().backward()
+            grads.append([t.grad for t in ins])
+        for got, want in zip(*grads):
+            assert got.dtype == want.dtype, (n, c, r)
+            assert _rel(got, want) <= tol, (n, c, r)
+
+
+def test_devox_launches_in_a_bf16_pc2_forward(dev):
+    """Every PVConv of a bf16 PC2 forward takes the kernel (14 launches, no
+    plain call), under autograd too, where its backward launches one
+    scatter-sum a call besides the blend's two."""
+    from bdm_tpu_torch.models.pvcnn import PVCNN2
+    net = PVCNN2(extra_feature_channels=387, dtype=torch.bfloat16).to(dev)
+    net.reset_parameters(0)
+    x = _cloud(dev, 2, 4096, 390, seed=7) * 0.3
+    t = torch.tensor([500, 20], device=dev)
+    kernels.reset_counts()
+    with torch.no_grad():
+        net(x, t)
+    assert kernels.counts()["devox"] == (len(chip_smoke.DEVOX_SHAPES), 0)
+    kernels.reset_counts()
+    net(x, t).float().sum().backward()
+    assert kernels.counts()["devox"] == (len(chip_smoke.DEVOX_SHAPES), 0)
+    assert kernels.counts()["scatter_sum"] == (
+        len(chip_smoke.DEVOX_SHAPES) + 2, 0)
+    assert all(torch.isfinite(p.grad).all() for p in net.parameters()
+               if p.requires_grad)

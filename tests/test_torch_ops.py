@@ -51,7 +51,8 @@ from bdm_tpu.ops.voxelize import run_counts_sorted
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
-                                    conv3d as k_conv, fps as k_fps,
+                                    conv3d as k_conv, devox as k_devox,
+                                    fps as k_fps,
                                     groupnorm as k_gn, interp as k_interp,
                                     scatter_sum as k_ss, three_nn as k_tnn,
                                     voxelize as k_vox)
@@ -598,9 +599,10 @@ def test_cpu_tensors_take_the_plain_versions():
     k_ss.scatter_sum(x, torch.zeros(1, 64, dtype=torch.int32), 2)
     k_gn.group_norm(x.repeat(1, 1, 8)[..., :16], torch.ones(16),
                     torch.zeros(16), 8, 1e-5, silu=True)
+    ops.gated_devoxelize(g, ctx.norm_coords, torch.ones(1, 3), x)
     assert set(kernels.counts()) == {
         "fps", "ball_query", "three_nn", "interp_mm", "scatter_mean",
-        "scatter_sum", "conv3d", "attention", "groupnorm"}
+        "scatter_sum", "conv3d", "attention", "groupnorm", "devox"}
     assert all(c == (0, 0) for c in kernels.counts().values()), \
         kernels.counts()
 
@@ -623,8 +625,11 @@ def test_cpu_tensors_take_the_plain_versions():
                                4),
     lambda t: k_gn.group_norm(t.new_zeros((1, 16, 8)), t.new_ones(8),
                               t.new_zeros(8), 8, 1e-5),
+    lambda t: k_devox.gated_devoxelize(t.new_zeros((1, 4, 4, 4, 8)), t,
+                                       t.new_ones((1, 8)),
+                                       t.new_zeros((1, 16, 8))),
 ], ids=["fps", "ball_query", "three_nn", "interp_mm", "attention",
-        "scatter_mean", "conv3d", "scatter_sum", "groupnorm"])
+        "scatter_mean", "conv3d", "scatter_sum", "groupnorm", "devox"])
 def test_non_cpu_tensor_never_falls_back(call):
     """A tensor off the CPU launches the kernel or raises; here (no CUDA
     device) a meta tensor must raise, not run the plain version."""
