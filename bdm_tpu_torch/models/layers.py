@@ -64,13 +64,27 @@ class Dropout(nn.Dropout):
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
+_FREQS = {}
+
+
+def _frequencies(half: int, device: torch.device) -> torch.Tensor:
+    """The embedding's (half,) float32 frequencies on `device`, computed on
+    the host in float64 once a (half, device) and kept: a forward then
+    copies nothing from the host, which a CUDA graph could not capture."""
+    freq = _FREQS.get((half, device))
+    if freq is None:
+        with torch.inference_mode(False):
+            freq = torch.exp(torch.arange(half, dtype=torch.float64)
+                             * -(math.log(10000.0) / (half - 1))).float()
+            freq = _FREQS[(half, device)] = freq.to(device)
+    return freq
+
+
 def get_timestep_embedding(embed_dim: int, t: torch.Tensor) -> torch.Tensor:
     """(B,) timesteps -> (B, E) float32 [sin | cos]; frequencies use
     half_dim - 1 (`pvcnn_utils.py:171-185`)."""
     half = embed_dim // 2
-    freq = torch.exp(torch.arange(half, dtype=torch.float64)
-                     * -(math.log(10000.0) / (half - 1))).float()
-    emb = t.float()[:, None] * freq.to(t.device)[None, :]
+    emb = t.float()[:, None] * _frequencies(half, t.device)[None, :]
     emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
     if embed_dim % 2 == 1:
         emb = F.pad(emb, (0, 1))

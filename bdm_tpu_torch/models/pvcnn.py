@@ -30,6 +30,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from bdm_tpu_torch import ops
+from bdm_tpu_torch.models.graphs import ForwardGraphs
 from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, Dropout,
                                          GroupNormCL, SharedMLP,
                                          get_timestep_embedding,
@@ -465,6 +466,7 @@ class PVCNN2(nn.Module):
         self.sp_min_points = sp_min_points
         self.classifier_init_scale = classifier_init_scale
         self.dtype = dtype
+        self.graphs = ForwardGraphs()
         self.specs = build_pvcnn2_specs(
             sa_blocks, fp_blocks, extra_feature_channels, use_att,
             width_multiplier, voxel_resolution_multiplier)
@@ -501,24 +503,34 @@ class PVCNN2(nn.Module):
                                                self.sp_min_points) else None
                 for c in counts]
 
+    def train(self, mode: bool = True):
+        self.graphs.clear()
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
     def forward(self, inputs: torch.Tensor, t: torch.Tensor,
                 pre_tap: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`pre_tap` (B, N, 27 * Cout0): stage 0's first conv in its
-        precontracted form."""
+        precontracted form. Unsharded, the forward replays a captured CUDA
+        graph where `models.graphs`'s rule allows it (on the card, autograd
+        off, `eval()`, spans off, no hook inside), else runs eagerly."""
         with span("network"):
-            group, groups = self.sp_group, None
-            if group is not None:
-                groups = self.sp_groups(inputs.shape[1]
-                                        * dist.get_world_size(group))
-                if pre_tap is not None or groups[0] is None:
-                    pre_tap = (None if pre_tap is None
-                               else psh.all_rows(pre_tap, group))
-                    return psh.own_rows(self._forward(
-                        psh.all_rows(inputs, group), t, pre_tap, None),
-                        group)
+            group = self.sp_group
+            if group is None:
+                return self.graphs(self, self._forward, inputs, t, pre_tap)
+            groups = self.sp_groups(inputs.shape[1]
+                                    * dist.get_world_size(group))
+            if pre_tap is not None or groups[0] is None:
+                pre_tap = (None if pre_tap is None
+                           else psh.all_rows(pre_tap, group))
+                return psh.own_rows(self._forward(
+                    psh.all_rows(inputs, group), t, pre_tap), group)
             return self._forward(inputs, t, pre_tap, groups)
 
-    def _forward(self, inputs, t, pre_tap, groups) -> torch.Tensor:
+    def _forward(self, inputs, t, pre_tap, groups=None) -> torch.Tensor:
         temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
         coords = inputs[..., :3].float()
         features = inputs if self.dtype is None else inputs.to(self.dtype)

@@ -52,13 +52,33 @@ KERNELS = {
 }
 
 
-def reset_counts() -> None:
+def _counters():
+    """(wrapper module, counter name) of every counter the wrappers keep."""
     for mod, _, _ in KERNELS.values():
-        mod.launches = 0
-        mod.plain_cuda_calls = 0
+        yield mod, "launches"
+        yield mod, "plain_cuda_calls"
         for path in getattr(mod, "PATHS", ()):
-            setattr(mod, f"launches_{path}", 0)
-    conv3d.packs = 0
+            yield mod, f"launches_{path}"
+    yield conv3d, "packs"
+
+
+def reset_counts() -> None:
+    for mod, name in _counters():
+        setattr(mod, name, 0)
+
+
+def tally() -> tuple:
+    """Every counter's value, in one fixed order: the difference of two
+    tallies is what the work between them added (`add_tally`)."""
+    return tuple(getattr(mod, name) for mod, name in _counters())
+
+
+def add_tally(delta) -> None:
+    """Add a difference of two tallies to the counters: a replayed CUDA
+    graph adds what its capture counted, so `launches` counts the
+    launches that ran whether eagerly or in a graph (`models.graphs`)."""
+    for (mod, name), d in zip(_counters(), delta):
+        setattr(mod, name, getattr(mod, name) + d)
 
 
 def counts() -> dict:
@@ -77,4 +97,5 @@ def path_counts() -> dict:
             if hasattr(mod, "PATHS")}
 
 
-__all__ = ["KERNELS", "build", "counts", "path_counts", "reset_counts"]
+__all__ = ["KERNELS", "add_tally", "build", "counts", "path_counts",
+           "reset_counts", "tally"]

@@ -58,13 +58,13 @@ def make_voxel_context(coords: torch.Tensor, resolution: int,
     ids = (vox[..., 0] * (r * r) + vox[..., 1] * r + vox[..., 2]).to(
         torch.int32)
     ids_sorted, order = torch.sort(ids, dim=1, stable=True)
-    flat = ids_sorted.long() + torch.arange(b, device=ids.device)[:, None] * r3
-    counts = torch.bincount(flat.reshape(-1), minlength=b * r3).reshape(b, r3)
-    voxel_lo = torch.cat(
-        [torch.zeros((b, 1), dtype=torch.int64, device=ids.device),
-         torch.cumsum(counts, dim=1)], dim=1).to(torch.int32)
+    # run starts: the sorted points below each voxel id. A search reads no
+    # device value on the host (bincount does), so a CUDA graph can hold it
+    starts = torch.arange(r3 + 1, dtype=torch.int32, device=ids.device)
+    voxel_lo = torch.searchsorted(ids_sorted, starts.expand(b, -1).contiguous(),
+                                  out_int32=True)
     return VoxelContext(norm_coords, ids, order.to(torch.int32).contiguous(),
-                        ids_sorted.contiguous(), voxel_lo.contiguous())
+                        ids_sorted.contiguous(), voxel_lo)
 
 
 def avg_voxelize(features: torch.Tensor, ctx: VoxelContext, resolution: int,

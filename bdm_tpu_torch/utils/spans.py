@@ -34,6 +34,11 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
+def is_recording() -> bool:
+    """Whether spans record now (inside `recording()`)."""
+    return _ON
+
+
 @contextlib.contextmanager
 def recording():
     """Spans record inside this block; the previous state comes back on

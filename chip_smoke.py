@@ -82,7 +82,9 @@ Phases, in the order they run (any failure exits non-zero):
      against the same three steps on the CPU through the plain versions
      (same weights, timesteps and noise, dropout 0);
   b. one PC2 denoise step and one fusion forward at B=8, N=4096, bf16,
-     production widths, with the kernel launches of each;
+     production widths, with the kernel launches of each; then PC2's
+     PVCNN2 forward at B 8 and B 64 run eagerly and replayed from its
+     CUDA graph (`models.graphs`), in turns, bit for bit equal;
   c. BDM-Blending end to end at production widths (PC2 with ViT-S/16 +
      PVD), B=2, N=4096, bf16, 50 DDPM steps with three interior
      milestones;
@@ -163,6 +165,10 @@ of j: none may launch); on the bfloat16 paths (b, c, e, i, j, k, l, bf16 g,
 the fusion step of h, the bench's quick run, n's bf16 step) every launch of
 attention and conv3d must have taken the tensor-core kernel, on the float32
 paths (the colouring model's whatever its configuration) the CUDA-core one.
+Every path in this process notes its CUDA graph captures and replays
+(`graphs_by_path` in the kernels line); the sampling paths (b's PC2 step,
+c, e, i, j but the simple backbone, k's BDM-B, l's three sampling runs)
+fail unless their PVCNN2 forwards replayed.
 In the phases at production widths (b, c, e, i, j, k, g, h, l, m, n, whose
 ranks note theirs and hand them back) every launch of
 the kernels whose shapes follow the model's widths (conv3d, attention,
@@ -1557,7 +1563,7 @@ def forwards(pc2, merge, dev):
         times = []
         for _ in range(4):
             torch.cuda.synchronize()
-            kernels.reset_counts()
+            reset_counts()
             t0 = time.perf_counter()
             with torch.inference_mode():
                 eps = call()
@@ -1567,11 +1573,49 @@ def forwards(pc2, merge, dev):
             fail(f"{name} output {tuple(eps.shape)} not finite")
         ms = statistics.median(times[1:]) * 1e3
         launches = check_path(name, kernels.counts(), kernels.path_counts(),
-                              ("scatter_sum",))
+                              ("scatter_sum",), samples=name == "pc2_forward")
         print(f"{name} B={b} N={n} bf16: {ms:.2f} ms (median of "
               f"{len(times) - 1} after warm-up); launches "
               f"{json.dumps(launches)}")
         out[name] = dict(ms=ms, launches=launches)
+    out["pc2_backbone"] = eager_and_replayed(pc2.backbone, dev)
+    return out
+
+
+def eager_and_replayed(net, dev, reps=10):
+    """PC2's PVCNN2 forward at B 8 and B 64, N 4096, bf16, on seeded
+    inputs of its 390 channels, run eagerly (`_forward`) and replayed from
+    its CUDA graph, in turns: the wall of `reps` forwards back to back,
+    synchronised, a forward, median of 6; the replayed output bit for bit
+    the eager one. -> {B: {"eager_ms", "replayed_ms"}}."""
+    import torch
+    out = {}
+    g = torch.Generator().manual_seed(SEED + 4)
+    for b in (8, 64):
+        x_in = torch.cat([torch.randn(b, 4096, 3, generator=g) * 0.3,
+                          torch.randn(b, 4096, 387, generator=g)], -1).to(dev)
+        t = torch.full((b,), 500, dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            runs = {"eager_ms": lambda: net._forward(x_in, t, None),
+                    "replayed_ms": lambda: net(x_in, t)}
+            net(x_in, t)                    # eager, then captured
+            if not torch.equal(net(x_in, t), net._forward(x_in, t, None)):
+                fail(f"the B {b} PVCNN2 replay differs from its eager forward")
+            walls = {k: [] for k in runs}
+            for _ in range(3):
+                for k in ("eager_ms", "replayed_ms", "replayed_ms",
+                          "eager_ms"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        runs[k]()
+                    torch.cuda.synchronize()
+                    walls[k].append((time.perf_counter() - t0) / reps * 1e3)
+        out[b] = {k: statistics.median(v) for k, v in walls.items()}
+        print(f"PC2 PVCNN2 forward B={b} N=4096 bf16: eager "
+              f"{out[b]['eager_ms']:.3f} ms, replayed "
+              f"{out[b]['replayed_ms']:.3f} ms a forward ({reps} back to "
+              f"back, median of 6 in turns); bit for bit equal")
     return out
 
 
@@ -1588,7 +1632,7 @@ def sampler_path(name, run, milestones, roll_step, dev):
     batch = {"image": torch.rand(b, 224, 224, 3, generator=g).to(dev),
              "camera": camera(b, dev)}
     torch.cuda.synchronize()
-    kernels.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = run(batch, n, milestones, roll_step, noise=NoiseProvider(SEED),
               num_inference_steps=50)
@@ -1603,7 +1647,8 @@ def sampler_path(name, run, milestones, roll_step, dev):
     if out.shape != (b, n, 3) or not torch.isfinite(out).all():
         fail(f"{name} output {tuple(out.shape)} not finite")
     # sampling differentiates nothing: the blend's backward kernel rests
-    return check_path(name, counts, paths, ("scatter_sum",)), wall, out
+    return (check_path(name, counts, paths, ("scatter_sum",), samples=True),
+            wall, out)
 
 
 def single_model_sampling(pc2, pvd, dev):
@@ -1635,7 +1680,7 @@ def single_model_sampling(pc2, pvd, dev):
     for name, run in runs.items():
         kw = {} if name.startswith("pvd") else {"num_inference_steps": 50}
         torch.cuda.synchronize()
-        kernels.reset_counts()
+        reset_counts()
         t0 = time.perf_counter()
         cloud = run(noise=NoiseProvider(SEED), **kw)
         torch.cuda.synchronize()
@@ -1648,7 +1693,7 @@ def single_model_sampling(pc2, pvd, dev):
         if cloud.shape != (b, n, 3) or not torch.isfinite(cloud).all():
             fail(f"{name} output {tuple(cloud.shape)} not finite")
         launches = check_path(name, kernels.counts(), kernels.path_counts(),
-                              ("scatter_sum",))
+                              ("scatter_sum",), samples=True)
         print(f"{name} B={b} N={n} bf16: {wall:.2f} s wall; launches "
               f"{json.dumps(launches)}")
         out[name] = dict(wall_s=wall, launches=launches)
@@ -1704,7 +1749,7 @@ def option_steps(dev):
         with torch.inference_mode():
             step()
             torch.cuda.synchronize()
-            kernels.reset_counts()
+            reset_counts()
             t0 = time.perf_counter()
             x_prev = step()
             torch.cuda.synchronize()
@@ -1714,7 +1759,8 @@ def option_steps(dev):
         unused = (tuple(kernels.KERNELS) if name == "simple"
                   else ("scatter_sum",))
         launches = check_path(f"option {name}", kernels.counts(),
-                              kernels.path_counts(), unused)
+                              kernels.path_counts(), unused,
+                              samples=name != "simple")
         note = (" (the simple backbone runs no kernel: held for finite "
                 "output only)" if name == "simple" else "")
         print(f"option {name} (in {pc2.in_channels} channels) B={b} N={n} "
@@ -1864,14 +1910,34 @@ def precontract_ab(pc2, pvd, plain_cloud, tiny_f32_err, dev):
     return out
 
 
-def check_path(name, counts, paths, unused=(), float32=False):
+def reset_counts():
+    """Zero the kernel and CUDA graph counters at a path's start."""
+    from bdm_tpu_torch.models import graphs
+    from bdm_tpu_torch.ops import cuda as kernels
+    kernels.reset_counts()
+    graphs.reset_counts()
+
+
+GRAPHS = {}     # path -> its CUDA graph captures and replays
+
+
+def check_path(name, counts, paths, unused=(), float32=False,
+               samples=False, here=True):
     """Every kernel launched on the path but those in `unused`, which
     launched no time; no plain version ran on the card; every launch of
     attention and conv3d took the tensor-core kernel (on a float32 path the
     CUDA-core one: the rule of `kernel_path` names no other shape), as the
-    bench checks its path (`bench.check_launches`). -> the launches, those
-    two kernels' also by kernel ("conv3d_tc", ...)."""
+    bench checks its path (`bench.check_launches`). A path run in this
+    process (`here`; not a spawned rank's counts) notes its graph captures
+    and replays in GRAPHS, and a sampling path (`samples`) fails unless
+    its PVCNN2 forwards replayed. -> the launches, those two kernels' also
+    by kernel ("conv3d_tc", ...)."""
     from bdm_tpu_torch.bench import check_launches
+    from bdm_tpu_torch.models import graphs
+    if here:
+        GRAPHS[name] = graphs.counts()
+        if samples and not graphs.graph_replays:
+            fail(f"the {name} path replayed no forward: {GRAPHS[name]}")
     try:
         return check_launches(counts, paths, set(counts) - set(unused),
                               float32)
@@ -1899,7 +1965,7 @@ def run_training(name, model, loss_fn, batches, noise, steps):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_counts()
+    reset_counts()
     marks.append(time.perf_counter())
     train_loop(state, loss_fn, batches, steps, noise, callbacks=[clock],
                log_step_freq=1, print_freq=10 ** 9)
@@ -2162,7 +2228,7 @@ def cli_run(name, main, argv, parts, plys=0, unused=()):
     from bdm_tpu_torch.ops import cuda as kernels
     from bdm_tpu_torch.utils import read_ply
     torch.cuda.synchronize()
-    kernels.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     with PartTimes(*parts) as timer:
         main(argv)
@@ -2186,7 +2252,8 @@ def cli_run(name, main, argv, parts, plys=0, unused=()):
             if pts.shape != (4096, 3) or not (pts == pts).all() or (
                     abs(pts) == float("inf")).any():
                 fail(f"{name}: {path.name} is {pts.shape}, not finite")
-    return check_path(name, counts, paths, unused), wall, parts_s
+    return (check_path(name, counts, paths, unused, samples=plys > 0),
+            wall, parts_s)
 
 
 def cli_paths(dev):
@@ -2415,7 +2482,7 @@ def coloring_paths(dev):
         torch.cuda.reset_peak_memory_stats()
         for i in range(4):
             torch.cuda.synchronize()
-            kernels.reset_counts()
+            reset_counts()
             t0 = time.perf_counter()
             rgb.append(model.predict(batch))
             torch.cuda.synchronize()
@@ -2918,7 +2985,8 @@ def parallel_paths(res, dev):
         for r, o in enumerate(outs):
             c = o["bf16"][1] if key is None else (o[key] if key == "dp_counts"
                                                   else o[key][2])
-            got = check_path(f"{name} (rank {r})", *c, unused, f32)
+            got = check_path(f"{name} (rank {r})", *c, unused, f32,
+                             here=False)
             if r == 0:
                 launches[name] = got
     if launches["dp_bf16"]["scatter_sum"] != 2 + DEVOX_A_FORWARD:
@@ -3031,6 +3099,7 @@ def main() -> int:
                    **{k: v["launches"] for k, v in train.items()},
                    **{k: v[0] for k, v in cli.items()})
 
+    backbone = fwd.pop("pc2_backbone")
     by_path.update({k: v["launches"] for k, v in fwd.items()})
     by_path.update({k: v["launches"] for k, v in single.items()})
     by_path.update({f"option_{k}": v["launches"] for k, v in options.items()})
@@ -3056,6 +3125,7 @@ def main() -> int:
         rows.append(row)
     print(json.dumps({"denoise_step_ms": fwd["pc2_forward"]["ms"],
                       "fusion_forward_ms": fwd["fusion_forward"]["ms"],
+                      "pc2_backbone_forward_ms": backbone,
                       "bdm_b_wall_s": blend_wall,
                       "bdm_m_wall_s": merge_wall,
                       "sampling_wall_s": {k: v["wall_s"]
@@ -3076,7 +3146,7 @@ def main() -> int:
                       "coloring_tiny_max_abs_err": tiny_coloring_err,
                       "bench_quick": quick_line,
                       "parallel": parallel}))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "graphs_by_path": GRAPHS}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
