@@ -22,9 +22,7 @@ __version__ = "0.3.0"
 
 def default_device() -> "torch.device":
     """The card. Raises without one: running on the CPU is the caller's
-    explicit choice (`device="cpu"`), never a silent carry-on. (torch is
-    imported here, not with the package, so `python -m
-    bdm_tpu_torch.bench`'s supervisor starts without it.)"""
+    explicit choice (`device="cpu"`), never a silent carry-on."""
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError(

@@ -10,8 +10,6 @@
 // block-wide argmax, so the kernel is bound by the length of one round (its
 // latency and its instruction count), not by bytes (a (4096, 3) cloud is
 // 48 KB) or operations.
-// `bdm_fps_round_floor` runs the same rounds with the distance work left
-// out: the floor this design can reach.
 // Design: one block per cloud of T threads, T sized from N
 // (`bdm_fps_threads`); thread t owns the K points t, t + T, ... in
 // registers (x, y, z and the running distance), so a round reads no memory
@@ -91,7 +89,7 @@ __device__ __forceinline__ unsigned block_argmax(uint2 (*slots)[32], int j,
 // kCloud: a float4 copy of the cloud in shared memory, from which the
 // winner's coordinates are read (clouds up to kCloudMaxPoints); else they
 // are read from `xyz` (any N).
-template <int K, bool kFloor, bool kCloud>
+template <int K, bool kCloud>
 __global__ void __launch_bounds__(kFpsMaxThreads)
     fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
                int m) {
@@ -131,15 +129,8 @@ __global__ void __launch_bounds__(kFpsMaxThreads)
     int di[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (kFloor) {
-        // no distance work; the xor ties the round to the last pick so
-        // the compiler cannot hoist the scan out of the loop
-        d[k] = __uint_as_float(__float_as_uint(dist[k]) ^ (picked & 1u));
-      } else {
-        d[k] = fminf(dist[k],
-                     sqdist(x[k], y[k], z[k], last.x, last.y, last.z));
-        dist[k] = d[k];
-      }
+      d[k] = fminf(dist[k], sqdist(x[k], y[k], z[k], last.x, last.y, last.z));
+      dist[k] = d[k];
       di[k] = t + k * nt;
     }
     // the thread's argmax as a pairwise tree (log2 K steps, not K): the
@@ -156,14 +147,11 @@ __global__ void __launch_bounds__(kFpsMaxThreads)
     }
     picked = block_argmax(slots, j, d[0], static_cast<unsigned>(di[0]), warp,
                           lane);
-    // the floor's xor may let a padding point win: stay inside the cloud
-    const unsigned at = kFloor ? min(picked, static_cast<unsigned>(n - 1))
-                               : picked;
     if (kCloud) {
-      const float4 c = cloud[at];
+      const float4 c = cloud[picked];
       last = make_float3(c.x, c.y, c.z);
     } else {
-      last = point_at(p, at);
+      last = point_at(p, picked);
     }
     if (t == 0) o[j] = static_cast<int>(picked);
   }
@@ -172,7 +160,6 @@ __global__ void __launch_bounds__(kFpsMaxThreads)
 // Above K 16: the running distances in `dist_g` ((B, N) float32 scratch),
 // the points streamed from L1 / L2 every round; a thread walks its points
 // in increasing index, so its first maximum is its lowest index.
-template <bool kFloor>
 __global__ void __launch_bounds__(kFpsMaxThreads)
     fps_stream_kernel(const float* __restrict__ xyz, float* __restrict__ dist_g,
                       int* __restrict__ out, int n, int m) {
@@ -197,27 +184,21 @@ __global__ void __launch_bounds__(kFpsMaxThreads)
     unsigned best_i = 0;
 #pragma unroll 4
     for (int i = t; i < n; i += nt) {
-      float d;
-      if (kFloor) {
-        d = __uint_as_float(__float_as_uint(dist[i]) ^ (picked & 1u));
-      } else {
-        const float3 q = point_at(p, i);
-        d = fminf(dist[i], sqdist(q.x, q.y, q.z, last.x, last.y, last.z));
-        dist[i] = d;
-      }
+      const float3 q = point_at(p, i);
+      const float d =
+          fminf(dist[i], sqdist(q.x, q.y, q.z, last.x, last.y, last.z));
+      dist[i] = d;
       if (d > best) {
         best = d;
         best_i = i;
       }
     }
     picked = block_argmax(slots, j, best, best_i, warp, lane);
-    last = point_at(p, kFloor ? min(picked, static_cast<unsigned>(n - 1))
-                              : picked);
+    last = point_at(p, picked);
     if (t == 0) o[j] = static_cast<int>(picked);
   }
 }
 
-template <bool kFloor>
 int launch(const float* xyz, float* dist, int* out, int b, int n, int m,
            cudaStream_t stream) {
   const int threads = fps_threads(n);
@@ -229,13 +210,11 @@ int launch(const float* xyz, float* dist, int* out, int b, int n, int m,
 #define BDM_FPS_CASE(K)                                                     \
   case K:                                                                   \
     if (in_smem) {                                                          \
-      err = bdm_allow_smem(fps_kernel<K, kFloor, true>, smem);              \
+      err = bdm_allow_smem(fps_kernel<K, true>, smem);                      \
       if (err != cudaSuccess) return static_cast<int>(err);                 \
-      fps_kernel<K, kFloor, true><<<b, threads, smem, stream>>>(xyz, out,   \
-                                                                n, m);      \
+      fps_kernel<K, true><<<b, threads, smem, stream>>>(xyz, out, n, m);    \
     } else {                                                                \
-      fps_kernel<K, kFloor, false><<<b, threads, 0, stream>>>(xyz, out, n,  \
-                                                              m);           \
+      fps_kernel<K, false><<<b, threads, 0, stream>>>(xyz, out, n, m);      \
     }                                                                       \
     break;
     BDM_FPS_CASE(1)
@@ -246,8 +225,7 @@ int launch(const float* xyz, float* dist, int* out, int b, int n, int m,
 #undef BDM_FPS_CASE
     default: {   // K 32 and above
       if (dist == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      fps_stream_kernel<kFloor><<<b, threads, 0, stream>>>(xyz, dist, out, n,
-                                                           m);
+      fps_stream_kernel<<<b, threads, 0, stream>>>(xyz, dist, out, n, m);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -259,14 +237,7 @@ int launch(const float* xyz, float* dist, int* out, int b, int n, int m,
 // (`bdm_fps_points(n)` > 16), else unused and may be null.
 BDM_EXPORT int bdm_fps(const float* xyz, float* dist, int* out, int b, int n,
                        int m, cudaStream_t stream) {
-  return launch<false>(xyz, dist, out, b, n, m, stream);
-}
-
-// The same block and rounds without the distance work (a measurement of
-// the barrier and the reductions alone; its indices mean nothing).
-BDM_EXPORT int bdm_fps_round_floor(const float* xyz, float* dist, int* out,
-                                   int b, int n, int m, cudaStream_t stream) {
-  return launch<true>(xyz, dist, out, b, n, m, stream);
+  return launch(xyz, dist, out, b, n, m, stream);
 }
 
 BDM_EXPORT int bdm_fps_threads(int n) { return fps_threads(n); }

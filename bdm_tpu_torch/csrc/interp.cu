@@ -14,17 +14,8 @@
 // Bound on the H100: bytes. A call reads idx, w and F once and writes
 // (B, N, C) bf16: B 8, N 4096 <- M 1024, C 128 moves 11.27 MB (3.36 us at
 // 3.35 TB/s), N 1024 <- M 256, C 256 5.44 MB (1.62 us). At that size the
-// launch is most of the cost: back to back on an H100 80GB HBM3 at 700 W,
-// a kernel of this grid that only writes the output (`bdm_interp_floor`)
-// takes 3.1 and 2.0 us with the early launch below and 4.3 and 3.2 us
-// without (`chip_smoke.py` phase a), so the design works on what surrounds
-// two dependent trips to L2 (idx and w, then the rows of F):
-//   * the kernel is launched with programmatic stream serialization: its
-//     blocks are dispatched while the kernel before it drains, and wait at
-//     `griddepcontrol.wait` (which returns once that kernel has finished
-//     and its writes are visible) before their first memory access, read
-//     or write. It never triggers its own dependents early: a block of the
-//     next call would hold a slot this call's blocks still need;
+// launch is most of the cost, so the design works on the two dependent
+// trips to L2 (idx and w, then the rows of F):
 //   * thread t of a block of T = 128 takes channel group t % G (G = C / 8
 //     groups of 16 bytes) of rows t / G + p * T / G, p < R = 2: a warp
 //     covers 32 / G consecutive rows, so its loads of idx and w read one
@@ -38,9 +29,7 @@
 //     start.
 // C that is no multiple of 8 takes groups of one channel, a 2-byte gather
 // each ("scalar"). Indices are clamped to [0, M) so a bad index cannot read
-// outside F (three_nn never produces one). `bdm_interp_floor` is a kernel
-// of its own: the same grid and launch, storing zeros where the blend
-// stores its output and reading nothing, to be timed.
+// outside F (three_nn never produces one).
 #include "common.cuh"
 
 #include <algorithm>
@@ -61,10 +50,6 @@ template <>
 struct Raw<1> {
   using type = unsigned short;
 };
-
-__device__ __forceinline__ void wait_for_previous_kernel() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
 
 // Where thread t of block (x, b, z) works: channel group j of rows
 // row0 + q * pass, q < kRows, of batch element b; `mine` is false for the
@@ -94,7 +79,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const __nv_bfloat16* __restrict__ feats,
                   __nv_bfloat16* __restrict__ out, int n, int m, int groups) {
   using Vec = typename Raw<VEC>::type;
-  wait_for_previous_kernel();
   const Place p = place(groups);
   const int* ib = idx + p.b * n * 3;
   const float* wb = w + p.b * n * 3;
@@ -141,37 +125,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// the floor: zeros where `interp_kernel<8>` stores, nothing read
-__global__ void __launch_bounds__(kThreads, 1)
-    floor_kernel(uint4* __restrict__ out, int n, int groups) {
-  wait_for_previous_kernel();
-  const Place p = place(groups);
-  uint4* ob = out + p.b * n * groups;
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int r = p.row0 + q * p.pass;
-    if (p.mine && r < n) ob[r * groups + p.j] = uint4{};
-  }
-}
-
-// Launch `kernel` on the blend's grid: rows on x, the batch element on y,
-// a row's groups past kThreads on z; `early` asks for programmatic stream
-// serialization.
-template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), int b, int n, int groups, bool early,
-           cudaStream_t stream, Args... args) {
+// Launch the blend on its grid: rows on x, the batch element on y, a
+// row's groups past kThreads on z.
+template <int VEC>
+int launch(const int* idx, const float* w, const __nv_bfloat16* f,
+           __nv_bfloat16* o, int b, int n, int m, int groups,
+           cudaStream_t stream) {
   const int pass = kThreads / std::min(groups, kThreads);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + pass * kRows - 1) / (pass * kRows), b,
-                     (groups + kThreads - 1) / kThreads);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = early ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+  const dim3 grid((n + pass * kRows - 1) / (pass * kRows), b,
+                  (groups + kThreads - 1) / kThreads);
+  interp_kernel<VEC><<<grid, kThreads, 0, stream>>>(idx, w, f, o, n, m,
+                                                    groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool fits(int b, int n, int m, int c) {
@@ -195,20 +160,6 @@ BDM_EXPORT int bdm_interp(const int* idx, const float* w, const void* feats,
   auto* o = static_cast<__nv_bfloat16*>(out);
   // 16-byte accesses need rows of a multiple of 8 channels (the wrapper
   // checks the 16-byte alignment of F and out)
-  if (c % 8 == 0)
-    return launch(interp_kernel<8>, b, n, c / 8, true, stream, idx, w, f, o,
-                  n, m, c / 8);
-  return launch(interp_kernel<1>, b, n, c, true, stream, idx, w, f, o, n, m,
-                c);
-}
-
-// `floor_kernel` on the grid of `bdm_interp` at C a multiple of 8, with
-// the early launch or without
-BDM_EXPORT int bdm_interp_floor(void* out, int b, int n, int m, int c,
-                                int early, cudaStream_t stream) {
-  if (!fits(b, n, m, c) || c % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(b) * n == 0) return static_cast<int>(cudaSuccess);
-  return launch(floor_kernel, b, n, c / 8, early != 0, stream,
-                static_cast<uint4*>(out), n, c / 8);
+  if (c % 8 == 0) return launch<8>(idx, w, f, o, b, n, m, c / 8, stream);
+  return launch<1>(idx, w, f, o, b, n, m, c, stream);
 }

@@ -31,11 +31,10 @@ the forward, replayed or not), and no parameter or buffer was made under
 `inference_mode` (such a tensor keeps no version, so an in-place write
 would go unseen). Every other call runs the forward eagerly.
 
-A replay adds the kernel counters its capture counted
+A replay adds to the kernels' ledger what its capture counted
 (`ops.cuda.add_tally`); the capture's own count is taken back, since a
 capture runs nothing. `graph_captures` and `graph_replays` count the
-graphs captured and the forwards replayed, kept like the kernels'
-`launches`.
+graphs captured and the forwards replayed.
 """
 
 from __future__ import annotations
@@ -112,7 +111,7 @@ class _Graph:
     graph: torch.cuda.CUDAGraph
     inputs: List[Optional[torch.Tensor]]   # static buffers of the arguments
     out: torch.Tensor                      # static output
-    tally: tuple                           # kernel counters one forward adds
+    tally: dict                       # what one forward adds to the ledger
 
 
 class ForwardGraphs:
@@ -168,8 +167,9 @@ def _capture(fn: Callable, args) -> _Graph:
             memory_format=torch.contiguous_format) for a in args]
     before = kernels.tally()
     graph, out = _record(fn, inputs)
-    delta = tuple(b - a for a, b in zip(before, kernels.tally()))
-    kernels.add_tally(tuple(-d for d in delta))
+    delta = {k: v - before[k] for k, v in kernels.tally().items()
+             if v != before[k]}
+    kernels.add_tally({k: -d for k, d in delta.items()})
     graph_captures += 1
     return _Graph(graph, inputs, out, delta)
 

@@ -2,21 +2,23 @@
 `bdm_tpu/ops/pallas/`.
 
 Every wrapper sends a CPU tensor to its plain PyTorch version and launches
-its CUDA kernel for a CUDA tensor (or raises). Each module counts its
-kernel launches (`launches`) and the calls of its plain version on CUDA
-tensors (`plain_cuda_calls`), so a run can show which path it took. A
-module whose source holds several kernels names them in `PATHS` and counts
-the launches of each (`launches_<path>`): attention and conv3d "tc"
-(tensor cores) and "simt" (CUDA cores), the blend "vec" (16-byte
-channel groups) and "scalar" (one channel).
+its CUDA kernel for a CUDA tensor (or raises). One ledger, kept by
+`_lib.launch`, counts each kernel's launches and the calls of its plain
+version on CUDA tensors (`counts`), so a run can show which path it took.
+Where a source holds several kernels (`PATHS`) it counts the launches of
+each (`path_counts`): attention and conv3d "tc" (tensor cores) and "simt"
+(CUDA cores), the blend "vec" (16-byte channel groups) and "scalar" (one
+channel).
 """
 
 from __future__ import annotations
 
+import collections
+
 from bdm_tpu_torch.ops.cuda import (attention, ball_query, conv3d, devox,
                                     fps, groupnorm, interp, scatter_sum,
                                     three_nn, voxelize)
-from bdm_tpu_torch.ops.cuda._lib import build
+from bdm_tpu_torch.ops.cuda._lib import PATHS, build, ledger
 
 _PALLAS = "bdm_tpu/ops/pallas/"
 
@@ -52,50 +54,36 @@ KERNELS = {
 }
 
 
-def _counters():
-    """(wrapper module, counter name) of every counter the wrappers keep."""
-    for mod, _, _ in KERNELS.values():
-        yield mod, "launches"
-        yield mod, "plain_cuda_calls"
-        for path in getattr(mod, "PATHS", ()):
-            yield mod, f"launches_{path}"
-    yield conv3d, "packs"
-
-
 def reset_counts() -> None:
-    for mod, name in _counters():
-        setattr(mod, name, 0)
+    ledger.clear()
 
 
-def tally() -> tuple:
-    """Every counter's value, in one fixed order: the difference of two
-    tallies is what the work between them added (`add_tally`)."""
-    return tuple(getattr(mod, name) for mod, name in _counters())
+def tally() -> collections.Counter:
+    """A snapshot of the ledger, {(kernel, what): count}: the difference
+    of two tallies is what the work between them added (`add_tally`)."""
+    return ledger.copy()
 
 
-def add_tally(delta) -> None:
-    """Add a difference of two tallies to the counters: a replayed CUDA
-    graph adds what its capture counted, so `launches` counts the
+def add_tally(delta: dict) -> None:
+    """Add a difference of two tallies to the ledger: a replayed CUDA
+    graph adds what its capture counted, so the ledger counts the
     launches that ran whether eagerly or in a graph (`models.graphs`)."""
-    for (mod, name), d in zip(_counters(), delta):
-        setattr(mod, name, getattr(mod, name) + d)
+    ledger.update(delta)
 
 
 def counts() -> dict:
     """name -> (kernel launches, plain-version calls on CUDA tensors)."""
-    return {name: (mod.launches, mod.plain_cuda_calls)
-            for name, (mod, _, _) in KERNELS.items()}
+    return {name: (ledger[name, "launches"], ledger[name, "plain"])
+            for name in KERNELS}
 
 
 def path_counts() -> dict:
-    """name -> {path: launches of that kernel}, for the modules with
+    """name -> {path: launches of that kernel}, for the kernels with
     `PATHS` (attention and conv3d: "tc", "simt"; interp_mm: "vec",
     "scalar")."""
-    return {name: {path: getattr(mod, f"launches_{path}")
-                   for path in mod.PATHS}
-            for name, (mod, _, _) in KERNELS.items()
-            if hasattr(mod, "PATHS")}
+    return {name: {path: ledger[name, path] for path in paths}
+            for name, paths in PATHS.items()}
 
 
-__all__ = ["KERNELS", "add_tally", "build", "counts", "path_counts",
-           "reset_counts", "tally"]
+__all__ = ["KERNELS", "PATHS", "add_tally", "build", "counts",
+           "path_counts", "reset_counts", "tally"]

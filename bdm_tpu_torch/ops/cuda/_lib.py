@@ -9,10 +9,17 @@ is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import: without `nvcc` or a GPU the package imports
 and only a launch raises.
+
+Every launch goes through `launch`, which counts it in `ledger` under its
+kernel (the `KERNELS` key of `ops.cuda`), and under its path where the
+wrapper names one (`PATHS`). The wrappers count there too the calls of
+their plain forms on CUDA tensors (`plain_call`) and conv3d its weight
+packs.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -32,11 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "bdm_fps": (_P, _P, _P, _I, _I, _I, _P),
-    "bdm_fps_round_floor": (_P, _P, _P, _I, _I, _I, _P),
     "bdm_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "bdm_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "bdm_interp": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "bdm_interp_floor": (_P, _I, _I, _I, _I, _I, _P),
     "bdm_scatter_mean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "bdm_scatter_sum": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),
@@ -63,6 +68,29 @@ _SIGNATURES = {
     "bdm_groupnorm_chunks": (_I, _I, _I, _I),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# entry point that launches -> (its kernel, the launches of one call)
+LAUNCHES = {
+    "bdm_fps": ("fps", 1),
+    "bdm_ball_query": ("ball_query", 1),
+    "bdm_three_nn": ("three_nn", 1),
+    "bdm_interp": ("interp_mm", 1),
+    "bdm_scatter_mean": ("scatter_mean", 1),
+    "bdm_scatter_sum": ("scatter_sum", 1),
+    "bdm_conv3d": ("conv3d", 1),
+    "bdm_attention": ("attention", 1),
+    "bdm_groupnorm": ("groupnorm", 2),     # statistics, apply
+    "bdm_groupnorm_stats": ("groupnorm", 1),
+    "bdm_groupnorm_apply": ("groupnorm", 1),
+    "bdm_devox": ("devox", 1),
+}
+# kernel -> the kernels of its source a wrapper chooses between:
+# tensor cores ("tc") or CUDA cores ("simt"); 16-byte channel groups
+# ("vec") or one channel ("scalar")
+PATHS = {"attention": ("tc", "simt"), "conv3d": ("tc", "simt"),
+         "interp_mm": ("vec", "scalar")}
+
+# (kernel, "launches" | a path | "plain" | "packs") -> count
+ledger = collections.Counter()
 
 _lib = None
 
@@ -132,19 +160,6 @@ def build(verbose: bool = False) -> Path:
     return so
 
 
-def build_source(src: Path) -> ctypes.CDLL:
-    """Build one source (with the headers beside it) into a library of its
-    own under BUILD_DIR and load it: for timing another tree's kernel
-    beside this one's. Its entry points keep ctypes' default types until
-    the caller sets them."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = Path(tempfile.mkdtemp(dir=BUILD_DIR)) / f"other_{src.stem}.so"
-    subprocess.run([_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-I", str(src.parent), str(src),
-                    "-o", str(out)], check=True)
-    return ctypes.CDLL(str(out))
-
-
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
@@ -160,15 +175,26 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, path: str | None = None) -> None:
     """Call one kernel entry point on the current stream; raise if CUDA
-    refused the launch."""
+    refused the launch, else count it in `ledger` (and under `path`, the
+    kernel of the source the call took)."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         msg = lib.bdm_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    kernel, n = LAUNCHES[name]
+    ledger[kernel, "launches"] += n
+    if path is not None:
+        ledger[kernel, path] += n
+
+
+def plain_call(kernel: str, t: torch.Tensor) -> None:
+    """Count a call of `kernel`'s plain form if it runs on the card."""
+    if t.is_cuda:
+        ledger[kernel, "plain"] += 1
 
 
 def check(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:

@@ -21,11 +21,6 @@ import torch
 
 from bdm_tpu_torch.ops.cuda import _lib
 
-launches = 0
-PATHS = ("tc", "simt")
-launches_tc = 0
-launches_simt = 0
-plain_cuda_calls = 0
 MAX_CHANNELS = 128
 
 
@@ -39,16 +34,13 @@ def kernel_path(dtype: torch.dtype, s: int, c: int) -> str:
 def attention_plain(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """q, k, v (B, S, C) -> (B, S, C) in v's dtype."""
-    global plain_cuda_calls
-    if q.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("attention", q)
     logits = torch.matmul(q.float(), k.float().transpose(1, 2))
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(w.float(), v.float()).to(v.dtype)
 
 
 def _forward(q, k, v):
-    global launches, launches_tc, launches_simt
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -66,12 +58,7 @@ def _forward(q, k, v):
                          "aligned")
     out = torch.empty_like(v)
     _lib.launch("bdm_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b, s, c, _lib.DTYPE_CODES[v.dtype])
-    launches += 1
-    if path == "tc":
-        launches_tc += 1
-    else:
-        launches_simt += 1
+                out.data_ptr(), b, s, c, _lib.DTYPE_CODES[v.dtype], path=path)
     return out
 
 

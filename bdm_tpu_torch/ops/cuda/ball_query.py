@@ -14,9 +14,6 @@ import torch.nn.functional as F
 from bdm_tpu_torch.ops.cuda import _lib
 from bdm_tpu_torch.ops.cuda.fps import sqdist
 
-launches = 0
-plain_cuda_calls = 0
-
 
 def radius_squared(radius: float) -> float:
     """float32(radius) ** 2 rounded once to float32 (exact as a double)."""
@@ -28,9 +25,7 @@ def ball_query_plain(centers: torch.Tensor, points: torch.Tensor,
                      radius: float, num_neighbors: int) -> torch.Tensor:
     """(B, M, 3), (B, N, 3) -> (B, M, U) int32: the first U points in scan
     order with d2 < r2; empty slots repeat the first hit, no hit gives 0."""
-    global plain_cuda_calls
-    if centers.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("ball_query", centers)
     n = points.shape[1]
     u = int(num_neighbors)
     d2 = sqdist(centers[:, :, None, :], points[:, None, :, :])   # (B, M, N)
@@ -49,7 +44,6 @@ def ball_query_plain(centers: torch.Tensor, points: torch.Tensor,
 @torch.no_grad()   # coordinates carry no gradient
 def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
                num_neighbors: int) -> torch.Tensor:
-    global launches
     if centers.device.type == "cpu":
         return ball_query_plain(centers, points, radius, num_neighbors)
     _lib.check(centers, "centers", (torch.float32,), 3)
@@ -63,5 +57,4 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
     out = torch.empty((b, m, u), dtype=torch.int32, device=centers.device)
     _lib.launch("bdm_ball_query", centers.data_ptr(), points.data_ptr(),
                 out.data_ptr(), b, m, n, u, radius_squared(radius))
-    launches += 1
     return out

@@ -33,12 +33,6 @@ import torch.nn.functional as F
 
 from bdm_tpu_torch.ops.cuda import _lib
 
-launches = 0
-PATHS = ("tc", "simt")
-launches_tc = 0
-launches_simt = 0
-plain_cuda_calls = 0
-packs = 0       # weight copies made by `packed`: cache misses
 CIN_STEP = 16   # the depth of one tensor-core product
 GEMM_CIN_STEP = 4   # the CUDA-core kernel's piece: 4 channels of one tap
 GEMM_K_STEP = 16    # ... and its ring stage: 4 pieces
@@ -47,9 +41,7 @@ GEMM_K_STEP = 16    # ... and its ring stage: 4 pieces
 def conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """x (B, R, R, R, Cin), weight (Cout, Cin, 3, 3, 3), bias (Cout,)."""
-    global plain_cuda_calls
-    if x.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("conv3d", x)
     w = weight.to(x.dtype).float()
     y = F.conv3d(x.permute(0, 4, 1, 2, 3).float(), w, bias.float(),
                  padding=1)
@@ -120,8 +112,8 @@ def packed(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
     made under `inference_mode` carry no version: they are packed at every
     call. A write through `weight.data` bumps no version and is not seen:
     update parameters in place under `torch.no_grad()`, as the optimizers
-    and `load_state_dict` do."""
-    global packs
+    and `load_state_dict` do. Each copy made counts as one of conv3d's
+    "packs" in the kernels' ledger."""
     cacheable = not (weight.is_inference() or bias.is_inference())
     key = (id(weight), dtype)
     if cacheable:
@@ -130,7 +122,7 @@ def packed(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
         if (hit is not None and hit[0]() is weight and hit[1]() is bias
                 and hit[2] == stamp):
             return hit[3], hit[4]
-    packs += 1
+    _lib.ledger["conv3d", "packs"] += 1
     cout, cin = weight.shape[:2]
     # one copy serves every grid size: the rule reads no R
     if kernel_path(dtype, cin, cout, 0) == "tc":
@@ -147,7 +139,6 @@ def packed(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
 
 
 def _forward(x, weight, bias):
-    global launches, launches_tc, launches_simt
     if x.device.type == "cpu":
         return conv3d_plain(x, weight, bias)
     _lib.check(x, "x", tuple(_lib.DTYPE_CODES), 5)
@@ -164,12 +155,8 @@ def _forward(x, weight, bias):
     w, bf = packed(weight, bias, x.dtype)
     out = torch.empty((b, r, r, r, cout), dtype=x.dtype, device=x.device)
     _lib.launch("bdm_conv3d", x.data_ptr(), w.data_ptr(), bf.data_ptr(),
-                out.data_ptr(), b, r, cin, cout, _lib.DTYPE_CODES[x.dtype])
-    launches += 1
-    if path == "tc":
-        launches_tc += 1
-    else:
-        launches_simt += 1
+                out.data_ptr(), b, r, cin, cout, _lib.DTYPE_CODES[x.dtype],
+                path=path)
     return out
 
 

@@ -35,9 +35,6 @@ import torch
 from bdm_tpu_torch.ops.cuda import _lib
 from bdm_tpu_torch.ops.cuda import scatter_sum as _ss
 
-launches = 0
-plain_cuda_calls = 0
-
 
 def corners(norm_coords: torch.Tensor, resolution: int):
     """(B, N, 3) float32 in [0, R-1] -> the 8 corners' flat voxel ids
@@ -86,9 +83,7 @@ def gated_devoxelize_plain(grid: torch.Tensor, norm_coords: torch.Tensor,
                            pf: torch.Tensor) -> torch.Tensor:
     """grid (B, R, R, R, C), norm_coords (B, N, 3) float32, gate (B, C)
     float32, pf (B, N, C) -> (B, N, C) in the grid's type."""
-    global plain_cuda_calls
-    if grid.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("devox", grid)
     dt = grid.dtype
     vox = trilinear_devoxelize(grid, norm_coords).to(dt)
     return vox * gate[:, None, :].to(dt) + pf.to(dt)
@@ -120,14 +115,12 @@ def _check(grid, norm_coords, gate, pf):
 
 
 def _forward(grid, norm_coords, gate, pf):
-    global launches
     pf = pf.to(grid.dtype)
     b, n, r, c = _check(grid, norm_coords, gate, pf)
     out = torch.empty_like(pf)
     _lib.launch("bdm_devox", grid.data_ptr(), norm_coords.data_ptr(),
                 gate.data_ptr(), pf.data_ptr(), out.data_ptr(), b, n, r, c,
                 _lib.DTYPE_CODES[grid.dtype])
-    launches += 1
     return out
 
 

@@ -8,8 +8,7 @@ source's `bdm_fps_threads`), and thread t holds the points t, t + T, ...:
 `points(n)` of them (`bdm_fps_points`), in registers up to
 MAX_REGISTER_POINTS, above it streamed every round with the running
 distances in a (B, N) float32 scratch this wrapper allocates, so N has no
-limit. `round_floor` runs the same block without the distance work: a
-measurement, not counted as a launch.
+limit.
 """
 
 from __future__ import annotations
@@ -18,8 +17,6 @@ import torch
 
 from bdm_tpu_torch.ops.cuda import _lib
 
-launches = 0          # kernel launches
-plain_cuda_calls = 0  # plain-version calls on CUDA tensors
 POINTS_A_THREAD = 8   # `kPointsAThread` of the source
 MAX_REGISTER_POINTS = 16   # the largest K the source keeps in registers
 
@@ -56,9 +53,7 @@ def furthest_point_sample_plain(coords: torch.Tensor,
                                 num_samples: int) -> torch.Tensor:
     """(B, N, 3) float32 -> (B, M) int32; index 0 first, then the argmax of
     the running min squared distance, lowest index on ties."""
-    global plain_cuda_calls
-    if coords.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("fps", coords)
     b, n, _ = coords.shape
     m = int(num_samples)
     out = torch.zeros((b, m), dtype=torch.int32, device=coords.device)
@@ -77,7 +72,6 @@ def furthest_point_sample_plain(coords: torch.Tensor,
 def furthest_point_sample(coords: torch.Tensor,
                           num_samples: int) -> torch.Tensor:
     """(B, N, 3) float32 -> (B, M) int32 furthest point sample."""
-    global launches
     if coords.device.type == "cpu":
         return furthest_point_sample_plain(coords, num_samples)
     _lib.check(coords, "coords", (torch.float32,), 3)
@@ -90,19 +84,4 @@ def furthest_point_sample(coords: torch.Tensor,
     _lib.launch("bdm_fps", coords.data_ptr(),
                 None if dist is None else dist.data_ptr(), out.data_ptr(), b,
                 n, m)
-    launches += 1
     return out
-
-
-def round_floor(coords: torch.Tensor, num_samples: int) -> None:
-    """Launch the kernel's M - 1 rounds with the distance work left out
-    (`bdm_fps_round_floor`): the barrier, the reductions and the look-up
-    of the winner alone, to be timed. Not counted in `launches`."""
-    _lib.check(coords, "coords", (torch.float32,), 3)
-    b, n, _ = coords.shape
-    out = torch.empty((b, int(num_samples)), dtype=torch.int32,
-                      device=coords.device)
-    dist = _scratch(coords)
-    _lib.launch("bdm_fps_round_floor", coords.data_ptr(),
-                None if dist is None else dist.data_ptr(), out.data_ptr(), b,
-                n, int(num_samples))

@@ -27,8 +27,8 @@ wanted and whether or not x is a point shard:
     `group` the two sums of the input's cotangent take one SUM over the
     ranks, and the weight's and bias's cotangents are this rank's part.
 
-`launches` counts the kernel's launches (two a call: statistics, apply);
-`plain_cuda_calls` the plain form's calls on CUDA tensors.
+A call without `group` is one launch of `bdm_groupnorm`, which the
+kernels' ledger counts as the pair's two launches.
 """
 
 from __future__ import annotations
@@ -39,15 +39,11 @@ import torch.nn.functional as F
 
 from bdm_tpu_torch.ops.cuda import _lib
 
-launches = 0
-plain_cuda_calls = 0
-
 # the source's split (`bdm_groupnorm_chunks`): a block of THREADS threads,
 # VECS 16-byte vectors a thread, at most MAX_GROUPS groups
 THREADS = 256
 VECS = 16
 MAX_GROUPS = 32
-LAUNCHES_A_CALL = 2
 _LANES = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
 
 
@@ -71,9 +67,7 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor,
     """x (B, ..., C), weight and bias (C,) float32 -> (B, ..., C) in
     `dtype` (default x's). With `group`, x is a shard of the point axis
     and the statistics are the whole's (`parallel.sharded_mean`)."""
-    global plain_cuda_calls
-    if x.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("groupnorm", x)
     b, c = x.shape[0], x.shape[-1]
     xf = x.float().reshape(b, -1, groups, c // groups)
     if group is None:
@@ -114,7 +108,6 @@ def _check(x, weight, bias, groups):
 def _forward(x, weight, bias, groups, eps, silu, group, keep_stats):
     """The kernel pair -> (out in x's dtype, the (B, G, 2) float32 (mean,
     rstd) where `keep_stats`, else None)."""
-    global launches
     b, s, c, n = _check(x, weight, bias, groups)
     out = torch.empty_like(x)
     part = torch.empty((b, n, groups, 4), dtype=torch.float32,
@@ -137,7 +130,6 @@ def _forward(x, weight, bias, groups, eps, silu, group, keep_stats):
                     ranks, weight.data_ptr(), bias.data_ptr(),
                     out.data_ptr(), st, b, s, c, groups, eps, int(silu),
                     code)
-    launches += LAUNCHES_A_CALL
     return out, stats
 
 

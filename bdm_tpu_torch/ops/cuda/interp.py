@@ -16,9 +16,8 @@ and the sum is cast to the features' dtype. Indices and weights come from
 coordinates that carry no gradient.
 
 A thread of the kernel takes one group of `vec` channels (8, or 1 where C
-is no multiple of 8: "scalar") of ROWS rows; `launches_vec` and
-`launches_scalar` count each. `floor` launches a kernel of its own on the
-same grid, writing zeros and reading nothing, to be timed.
+is no multiple of 8: "scalar") of ROWS rows; the kernels' ledger counts
+the launches of each.
 """
 
 from __future__ import annotations
@@ -27,12 +26,6 @@ import torch
 
 from bdm_tpu_torch.ops.cuda import _lib
 from bdm_tpu_torch.ops.cuda import scatter_sum as _ss
-
-launches = 0
-plain_cuda_calls = 0
-PATHS = ("vec", "scalar")
-launches_vec = 0
-launches_scalar = 0
 
 # the source's split (`bdm_interp_threads`, `bdm_interp_rows`): a block of
 # THREADS threads, ROWS rows a thread
@@ -55,10 +48,8 @@ def interp_mm_plain(idx: torch.Tensor, w: torch.Tensor,
                     feats: torch.Tensor) -> torch.Tensor:
     """idx (B, N, 3) int32, w (B, N, 3) float32, feats (B, M, C) bf16
     -> (B, N, C) bf16."""
-    global plain_cuda_calls
     _check_shapes(idx, w, feats)
-    if feats.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("interp_mm", feats)
     b, n, _ = idx.shape
     c = feats.shape[-1]
     wb = w.to(torch.bfloat16).float()
@@ -72,7 +63,6 @@ def interp_mm_plain(idx: torch.Tensor, w: torch.Tensor,
 
 
 def _forward(idx, w, feats):
-    global launches, launches_vec, launches_scalar
     if feats.device.type == "cpu":
         return interp_mm_plain(idx, w, feats)
     _lib.check(idx, "idx", (torch.int32,), 3)
@@ -88,12 +78,7 @@ def _forward(idx, w, feats):
     if c % 8 == 0 and (feats.data_ptr() % 16 or out.data_ptr() % 16):
         raise ValueError("interp_mm: features must be 16-byte aligned")
     _lib.launch("bdm_interp", idx.data_ptr(), w.data_ptr(), feats.data_ptr(),
-                out.data_ptr(), b, n, m, c)
-    launches += 1
-    if c % 8:
-        launches_scalar += 1
-    else:
-        launches_vec += 1
+                out.data_ptr(), b, n, m, c, path="scalar" if c % 8 else "vec")
     return out
 
 
@@ -117,12 +102,3 @@ class _InterpMM(torch.autograd.Function):
 def interp_mm(idx: torch.Tensor, w: torch.Tensor,
               feats: torch.Tensor) -> torch.Tensor:
     return _InterpMM.apply(idx, w, feats)
-
-
-def floor(b: int, n: int, m: int, c: int, early: bool = True) -> None:
-    """Launch a kernel on the blend's grid (C a multiple of 8) that writes
-    zeros to a (B, N, C) bf16 tensor and reads nothing
-    (`bdm_interp_floor`), with the early launch or without: the floor of
-    the design, to be timed. Not counted in `launches`."""
-    out = torch.empty((b, n, c), dtype=torch.bfloat16, device="cuda")
-    _lib.launch("bdm_interp_floor", out.data_ptr(), b, n, m, c, int(early))

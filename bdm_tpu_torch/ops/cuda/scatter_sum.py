@@ -23,8 +23,6 @@ import torch
 from bdm_tpu_torch.ops.cuda import _lib
 from bdm_tpu_torch.ops.cuda import voxelize as _vox
 
-launches = 0
-plain_cuda_calls = 0
 
 
 def tile(n: int, s: int) -> int:
@@ -45,9 +43,7 @@ def scatter_sum_plain(features: torch.Tensor, ids: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
     """features (B, N, C) float32 or bfloat16, ids (B, N) int32
     -> (B, S, C) float32; a row whose id lies outside [0, S) is dropped."""
-    global plain_cuda_calls
-    if features.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("scatter_sum", features)
     b, n, c = features.shape
     s = int(num_segments)
     flat = ids.long() + torch.arange(b, device=ids.device)[:, None] * s
@@ -62,7 +58,6 @@ def scatter_sum_plain(features: torch.Tensor, ids: torch.Tensor,
 
 def scatter_sum(features: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    global launches
     features = features.detach()
     if features.device.type == "cpu":
         return scatter_sum_plain(features, ids, num_segments)
@@ -88,5 +83,4 @@ def scatter_sum(features: torch.Tensor, ids: torch.Tensor,
                 out.data_ptr(), order.data_ptr(), lo.data_ptr(),
                 rank.data_ptr(), counters.data_ptr(), b, n, c, s, t,
                 _lib.DTYPE_CODES[features.dtype])
-    launches += 1
     return out

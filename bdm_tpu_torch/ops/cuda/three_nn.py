@@ -19,8 +19,6 @@ import torch
 from bdm_tpu_torch.ops.cuda import _lib
 from bdm_tpu_torch.ops.cuda.fps import sqdist
 
-launches = 0
-plain_cuda_calls = 0
 TILE = 2048          # centres staged a pass, `kTile` of the source
 STEP_FROM = 256      # M from which a step holds 4 centres, `kStepFrom`
 MIN_THREADS = 2 ** 15   # the threads `lanes` aims for
@@ -54,9 +52,7 @@ def idw_weights(best: torch.Tensor) -> torch.Tensor:
 def three_nn_plain(points: torch.Tensor, centers: torch.Tensor):
     """(B, N, 3), (B, M, 3) -> (idx (B, N, 3) int32, w (B, N, 3) float32);
     three masked argmins, so the lower index wins a tie."""
-    global plain_cuda_calls
-    if points.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("three_nn", points)
     m = centers.shape[1]
     d2 = sqdist(points[:, :, None, :], centers[:, None, :, :])   # (B, N, M)
     cur = d2.clone()
@@ -76,7 +72,6 @@ def three_nn_plain(points: torch.Tensor, centers: torch.Tensor):
 
 @torch.no_grad()   # coordinates carry no gradient
 def three_nn(points: torch.Tensor, centers: torch.Tensor):
-    global launches
     if points.device.type == "cpu":
         return three_nn_plain(points, centers)
     _lib.check(points, "points", (torch.float32,), 3)
@@ -90,5 +85,4 @@ def three_nn(points: torch.Tensor, centers: torch.Tensor):
     w = torch.empty((b, n, 3), dtype=torch.float32, device=points.device)
     _lib.launch("bdm_three_nn", points.data_ptr(), centers.data_ptr(),
                 idx.data_ptr(), w.data_ptr(), b, n, m)
-    launches += 1
     return idx, w

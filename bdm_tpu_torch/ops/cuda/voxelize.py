@@ -26,8 +26,6 @@ import torch
 
 from bdm_tpu_torch.ops.cuda import _lib
 
-launches = 0
-plain_cuda_calls = 0
 
 
 def kernel_path(in_dtype: torch.dtype, out_dtype: torch.dtype,
@@ -60,9 +58,7 @@ def scatter_mean_plain(features: torch.Tensor, order: torch.Tensor,
     of the voxel ids); voxel_lo (B, R^3 + 1) int32 run starts
     -> (B, R, R, R, C) mean grid (sum grid with `divide=False`), empty
     voxels zero."""
-    global plain_cuda_calls
-    if features.is_cuda:
-        plain_cuda_calls += 1
+    _lib.plain_call("scatter_mean", features)
     b, n, c = features.shape
     r3 = resolution ** 3
     fm = torch.gather(features, 1,
@@ -79,7 +75,6 @@ def scatter_mean_plain(features: torch.Tensor, order: torch.Tensor,
 
 def _forward(features, order, ids_sorted, voxel_lo, resolution, out_dtype,
              divide):
-    global launches
     if features.device.type == "cpu":
         return scatter_mean_plain(features, order, ids_sorted, voxel_lo,
                                   resolution, out_dtype, divide)
@@ -105,7 +100,6 @@ def _forward(features, order, ids_sorted, voxel_lo, resolution, out_dtype,
                 voxel_lo.data_ptr(), out.data_ptr(), b, n, c, r3,
                 int(bool(divide)), _lib.DTYPE_CODES[features.dtype],
                 _lib.DTYPE_CODES[out_dtype])
-    launches += 1
     return out
 
 

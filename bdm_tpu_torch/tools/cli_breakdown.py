@@ -97,11 +97,12 @@ def main() -> None:
          "cli_prefetch", "direct")]
     rows = []
     for name in order:
-        packs = kernels.conv3d.packs
+        packs = kernels.tally()["conv3d", "packs"]
         with GcPauses() as pauses:
             sampler_s = runs[name]()
         rows.append(dict(run=name, sampler_s=sampler_s, gc_s=pauses.s,
-                         conv3d_packs=kernels.conv3d.packs - packs))
+                         conv3d_packs=kernels.tally()["conv3d", "packs"]
+                         - packs))
         print(json.dumps(rows[-1]), flush=True)
     print(json.dumps({"card": card, "runs": rows}))
 

@@ -35,7 +35,7 @@ def camera(b: int, device) -> PerspectiveCamera:
 
 def synthetic_batch(b: int, n: int, image_size: int,
                     rng: np.random.Generator) -> dict:
-    """`__graft_entry__._synthetic_batch`, the bench's batch, as CPU
+    """`__graft_entry__._synthetic_batch`, `bench.py`'s batch, as CPU
     tensors: the same draws in the same order (points N(0, 0.3^2), then the
     image uniform in [0, 1]) and its camera (R = I, the cloud 1.5 units
     ahead, focal 2.1875, principal point 0)."""
@@ -69,8 +69,8 @@ def production_models(seed: int = 0, mixed_precision: str = "bf16",
     """PC2 (ViT-S/16, 387 extra channels), PVD and the fusion model made
     of them, bf16 unless `mixed_precision` says otherwise, random weights
     from `seed`, on the card unless `device` names another. With `quick`
-    the tiny ones of the bench's `--quick`: the identity feature model at
-    image 16, `TINY_SA` / `TINY_FP`, embedding 8."""
+    tiny ones: the identity feature model at image 16, `TINY_SA` /
+    `TINY_FP`, embedding 8."""
     blocks, embed = {}, {}
     if quick:
         cfg = ProjectionConfig(image_size=16, image_feature_model="identity",

@@ -5,8 +5,7 @@ run the port's paths at full model width: BDM-Blending and BDM-Merging
 sampling, PC2 and PVD sampling, PC2's conditioning options and backbones,
 the precontracted stage-0 conv, training of PC2, PVD and the fusion
 network, the three command-line entry points with the evaluation CLI, the
-colouring model, the bench's quick run and the parallel paths on two
-ranks.
+colouring model and the parallel paths on two ranks.
 
     python3 chip_smoke.py
 
@@ -23,8 +22,7 @@ Phases, in the order they run (any failure exits non-zero):
      time, the recorded time of the CUDA-core kernel that served bfloat16
      before (a constant, so it stays out of the `kernels` line); FPS also on
      tie-heavy clouds (the integer lattice, exact duplicates) at every level
-     and at N that is no multiple of its block, with the time of its rounds
-     without the distance work (the floor of its design); ball query on
+     and at N that is no multiple of its block; ball query on
      those clouds at every level, on the lattice at r = 1.0 (a face
      neighbour at d2 = r2 exactly is out) and at N < U, timed at the five
      shapes of the paths; three-NN on those clouds at every level (the
@@ -51,8 +49,7 @@ Phases, in the order they run (any failure exits non-zero):
      plain version at the two FP stages and at the edge shapes of
      `INTERP_SHAPES` (B 1, N no multiple of a block's rows, C 8, 40, 264,
      one channel a group at C 12 and 200, M 128), timed back to back and
-     one launch beside `F.embedding_bag`, its grid writing zeros with and
-     without the early launch (`interp.floor`), and the host's cost of
+     one launch beside `F.embedding_bag`, and the host's cost of
      enqueueing one call (1,000 calls, no synchronise); GroupNorm at
      every (S, C) of `GN_SHAPES`, float32 and bf16, with and without its
      SiLU, against the float32 plain form (float32 within 1e-5 of the
@@ -134,9 +131,7 @@ Phases, in the order they run (any failure exits non-zero):
      mixed_precision bf16 and "no" (its backbone is float32 either way:
      the same colours within 1e-5), each timed on the host clock (median
      of 3 after a warm-up) with its peak memory, and two training steps
-     through `train_loop`; then `python -m bdm_tpu_torch.bench --quick`
-     as a subprocess (rc 0, one JSON line, `value` > 0, the launches of
-     its timed batches from its stderr).
+     through `train_loop`.
   n. `bdm_tpu_torch.parallel` on two ranks spawned over gloo (both on the
      one card: NCCL refuses two ranks on one GPU), PC2 at full width: two
      data-parallel float32 SGD steps at B 8, four rows a rank, against one
@@ -162,7 +157,7 @@ Phases, in the order they run (any failure exits non-zero):
 In c, e, g, h, i, j, k, l, m and n every kernel of the path must have
 launched and no plain version may have run on the card (the simple backbone
 of j: none may launch); on the bfloat16 paths (b, c, e, i, j, k, l, bf16 g,
-the fusion step of h, the bench's quick run, n's bf16 step) every launch of
+the fusion step of h, n's bf16 step) every launch of
 attention and conv3d must have taken the tensor-core kernel, on the float32
 paths (the colouring model's whatever its configuration) the CUDA-core one.
 Every path in this process notes its CUDA graph captures and replays
@@ -277,8 +272,8 @@ FPS_LARGE = [(16384, 4096), (20000, 5000), (40000, 10000)]
 # Times of the kernels that the present ones replaced: ms at B=8 on an
 # NVIDIA H100 80GB HBM3 at 700.00 W, with how they were timed: one launch
 # between CUDA events or launches back to back behind a matmul (PERF.md
-# section 6 keeps them in rows 1, 2, 3, 6, 7 and 8; three-NN's from
-# `tools/compare_three_nn.py` against the parent tree)
+# section 6 keeps them in rows 1, 2, 3, 6, 7 and 8; three-NN's timed in
+# one call beside the parent tree's kernel)
 BEFORE_MS = {
     "fps N4096 M1024": (1.0275, "one launch"),
     "scatter_mean bf16 C390 R32": (0.4598, "one launch"),
@@ -517,9 +512,6 @@ def check_kernels(dev):
         max_abs_err=0.0,
         ms=timed_ms(lambda: fps.furthest_point_sample(p0, 1024), inner=10),
         ms_one_launch=timed_ms(lambda: fps.furthest_point_sample(p0, 1024)),
-        # the same block's M - 1 rounds without the distance work: the
-        # barrier, the reductions and the winner's look-up
-        round_floor_ms=timed_ms(lambda: fps.round_floor(p0, 1024), inner=10),
         timing="10 launches back to back behind a matmul",
         ms_one_launch_large_n=large,
         plain_ms=timed_ms(
@@ -669,11 +661,6 @@ def check_kernels(dev):
         by_shape[f"N{n}_M{m}_C{c}"] = dict(
             ms=timed_ms(lambda: interp.interp_mm(i, w, f), inner=20),
             ms_one_launch=timed_ms(lambda: interp.interp_mm(i, w, f)),
-            # the same grid and launch writing zeros and reading nothing,
-            # with the early launch and without
-            floor_ms=timed_ms(lambda: interp.floor(b, n, m, c), inner=20),
-            floor_ms_no_early=timed_ms(
-                lambda: interp.floor(b, n, m, c, early=False), inner=20),
             enqueue_us=enqueue_us,
             library_ms=timed_ms(lambda: F.embedding_bag(
                 flat, table, per_sample_weights=wb, mode="sum"), inner=20),
@@ -1142,9 +1129,6 @@ def check_kernels(dev):
           f"floor without FMAs {floor:.5f} ms ({floor / tn['ms']:.1%}), "
           f"operations bound {tn['bound_ms']:.5f} ms "
           f"({tn['bound_ms'] / tn['ms']:.1%})")
-    print(f"fps round floor N=4096 M=1024: {fr['round_floor_ms']:.4f} ms "
-          f"(operations bound {fr['bound_ms']:.5f} ms, kernel "
-          f"{fr['ms']:.4f} ms)")
     print("fps past the registers, one launch, ms:",
           json.dumps(fr["ms_one_launch_large_n"]))
     ss = res["scatter_sum"]["ms_by_shape"]
@@ -1153,9 +1137,7 @@ def check_kernels(dev):
         print(f"interp_mm {key}: {r['ms']:.4f} ms back to back "
               f"({r['bound_ms'] / r['ms']:.1%} of the bound "
               f"{r['bound_ms']:.5f} ms), {r['ms_one_launch']:.4f} ms one "
-              f"launch; the grid writing zeros {r['floor_ms']:.4f} ms "
-              f"({r['floor_ms_no_early']:.4f} ms without the early "
-              f"launch); embedding_bag {r['library_ms']:.4f} ms; host "
+              f"launch; embedding_bag {r['library_ms']:.4f} ms; host "
               f"enqueue {r['enqueue_us']:.2f} us a call")
     redesigned = {
         "fps N4096 M1024": fr,
@@ -1643,7 +1625,7 @@ def sampler_path(name, run, milestones, roll_step, dev):
           f"roll {roll_step}: {wall:.2f} s wall")
     print("launch counts (kernel, plain on CUDA):", json.dumps(counts),
           "by kernel:", json.dumps(paths), "conv3d weight packs:",
-          kernels.conv3d.packs)
+          kernels.tally()["conv3d", "packs"])
     if out.shape != (b, n, 3) or not torch.isfinite(out).all():
         fail(f"{name} output {tuple(out.shape)} not finite")
     # sampling differentiates nothing: the blend's backward kernel rests
@@ -2542,32 +2524,6 @@ def coloring_paths(dev):
     return out
 
 
-def bench_quick():
-    """Phase m, the bench reduced: `python -m bdm_tpu_torch.bench --quick`
-    (bf16, on the card, its kernel self-check at production shapes) as a
-    user runs it: rc 0, one JSON line with `value` > 0. -> (the line, the
-    launches of its timed batches, read from its stderr)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "bdm_tpu_torch.bench",
-                           "--quick"], capture_output=True, text=True,
-                          timeout=600, cwd=ROOT)
-    lines = [json.loads(x) for x in proc.stdout.splitlines()
-             if x.strip().startswith("{")]
-    tail = proc.stderr[-3000:]
-    if proc.returncode != 0 or len(lines) != 1 or not lines[0]["value"] > 0:
-        fail(f"bench --quick: rc {proc.returncode}, stdout {proc.stdout!r}, "
-             f"stderr ...{tail}")
-    marks = [x for x in proc.stderr.splitlines()
-             if x.startswith("bench launches: ")]
-    if len(marks) != 1:
-        fail(f"bench --quick printed no launch counts: ...{tail}")
-    launches = json.loads(marks[0][len("bench launches: "):])
-    print(f"bench --quick: {json.dumps(lines[0])} in "
-          f"{time.perf_counter() - t0:.1f} s; launches "
-          f"{json.dumps(launches)}")
-    return lines[0], launches
-
-
 # ------------------------------------------------------------ phase n
 
 # phase n's point-sharded denoise: the point counts; its data-parallel
@@ -3092,7 +3048,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli, cli_eval, eval_ms = cli_paths(dev)
     coloring = coloring_paths(dev)
-    quick_line, quick_launches = bench_quick()
     parallel, parallel_launches = parallel_paths(res, dev)
     check_shapes_covered(checked)
     by_path = dict(bdm_blending=blend, bdm_merging=merged,
@@ -3105,7 +3060,6 @@ def main() -> int:
     by_path.update({f"option_{k}": v["launches"] for k, v in options.items()})
     by_path["bdm_blending_precontract"] = pre_ab["bdm_b"]["launches"]
     by_path.update({k: v["launches"] for k, v in coloring.items()})
-    by_path["bench_quick"] = quick_launches
     by_path.update(parallel_launches)
 
     rows = []
@@ -3118,9 +3072,9 @@ def main() -> int:
             launches=by_path["pc2_bf16"][name],
             launches_by_path={k: v[name] for k, v in by_path.items()},
             **res[name])
-        if hasattr(mod, "PATHS"):
+        if name in kernels.PATHS:
             row["launches_by_kernel"] = {
-                k: {p: v[f"{name}_{p}"] for p in mod.PATHS}
+                k: {p: v[f"{name}_{p}"] for p in kernels.PATHS[name]}
                 for k, v in by_path.items()}
         rows.append(row)
     print(json.dumps({"denoise_step_ms": fwd["pc2_forward"]["ms"],
@@ -3144,7 +3098,6 @@ def main() -> int:
                       "coloring": {k: {m: v[m] for m in v if m != "launches"}
                                    for k, v in coloring.items()},
                       "coloring_tiny_max_abs_err": tiny_coloring_err,
-                      "bench_quick": quick_line,
                       "parallel": parallel}))
     print(json.dumps({"kernels": rows, "graphs_by_path": GRAPHS}))
     print(card)

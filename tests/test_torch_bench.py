@@ -1,9 +1,7 @@
-"""`python -m bdm_tpu_torch.bench`, the port's bench: the one-line contract
-of `tests/test_bench_contract.py` with the port's departures (a failure
-exits non-zero, no retry at half the batch), its synthetic batch against
-`__graft_entry__._synthetic_batch`, its operation count against
-`torch.utils.flop_counter.FlopCounterMode` and its forward counter against
-the samplers' schedule. Every subprocess imports torch, not JAX.
+"""What is left of the port's measurement helpers in `bdm_tpu_torch.bench`:
+the synthetic batch against `__graft_entry__._synthetic_batch`, the
+operation count against `torch.utils.flop_counter.FlopCounterMode`, the
+launch check, and the samplers' schedule as forward hooks count it.
 
 The operation count (`bench.forward_flops`) and `FlopCounterMode` count
 the same products on the plain CPU forward: convolutions, dense layers and
@@ -13,12 +11,7 @@ gathers, the scatter-mean, devoxelization and the three-neighbour blend
 tolerance is 1e-6 relative (they should agree exactly).
 """
 
-import json
-import os
-import signal
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -27,9 +20,8 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from bdm_tpu_torch import bench
-from bdm_tpu_torch.models import FeatureModel, build_pvcnn2_specs
-from bdm_tpu_torch.samplers import (NoiseProvider, bdm_blending, bdm_merging,
-                                    compute_dtype_of)
+from bdm_tpu_torch.models import FeatureModel
+from bdm_tpu_torch.samplers import NoiseProvider, bdm_blending, bdm_merging
 from bdm_tpu_torch.tools.standins import production_models, synthetic_batch
 
 # tiny tensors: one intra-op thread is faster than many, and six pytest
@@ -37,93 +29,9 @@ from bdm_tpu_torch.tools.standins import production_models, synthetic_batch
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def _env(**extra):
-    """One intra-op thread: the tiny models gain nothing from more, and
-    the test workers share the host's cores."""
-    return dict(os.environ, OMP_NUM_THREADS="1", **extra)
-
-
-def _run(extra=(), env_extra=None, timeout=120, device_cpu=True):
-    env = _env()
-    env.pop("BDM_BENCH_FAIL", None)
-    env.update(env_extra or {})
-    cmd = [sys.executable, "-m", "bdm_tpu_torch.bench", "--quick",
-           "--precision", "no", *extra]
-    if device_cpu:
-        cmd += ["--device", "cpu"]
-    return subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=timeout, env=env, cwd=ROOT)
-
-
-def _json_lines(stdout):
-    return [json.loads(line) for line in stdout.splitlines()
-            if line.strip().startswith("{")]
-
-
-def _failure_line(proc):
-    lines = _json_lines(proc.stdout)
-    assert len(lines) == 1, (proc.stdout, proc.stderr[-2000:])
-    line = lines[0]
-    assert line["value"] == 0.0 and line["error"]
-    assert line["unit"] == "clouds/sec/chip"
-    return line
-
-
-def test_quick_cpu_prints_one_line():
-    proc = _run(timeout=240)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    lines = _json_lines(proc.stdout)
-    assert len(lines) == 1
-    assert set(lines[0]) == {"metric", "value", "unit", "vs_baseline"}
-    assert lines[0]["value"] > 0
-    assert lines[0]["unit"] == "clouds/sec/chip"
-    assert "BDM-Blending" in lines[0]["metric"]
-    assert proc.stderr.count("supervisor: attempt") == 1
-    for what in ("batch 2:", "median", "MFU:", "bench summary:"):
-        assert what in proc.stderr
-
-
-@pytest.mark.parametrize("mode", ["assert", "oom", "segv", "hang"])
-def test_injected_failure_prints_one_line_and_fails(mode):
-    extra = ["--deadline", "34"] if mode == "hang" else []
-    t0 = time.monotonic()
-    proc = _run(extra, {"BDM_BENCH_FAIL": mode})
-    assert proc.returncode != 0
-    line = _failure_line(proc)
-    # one attempt, at the asked batch: no retry at half the batch
-    assert proc.stderr.count("supervisor: attempt") == 1
-    assert "attempt batch=8" in proc.stderr
-    if mode == "segv":
-        assert "crashed" in line["error"]
-    if mode == "hang":
-        assert "deadline" in line["error"]
-    assert time.monotonic() - t0 < 60
-
-
-def test_sigterm_prints_one_line():
-    env = _env(BDM_BENCH_FAIL="hang")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "bdm_tpu_torch.bench", "--quick", "--device",
-         "cpu"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=env, cwd=ROOT)
-    time.sleep(4)      # the supervisor has its handlers and its worker
-    proc.send_signal(signal.SIGTERM)
-    stdout, stderr = proc.communicate(timeout=60)
-    assert proc.returncode != 0
-    lines = _json_lines(stdout)
-    assert len(lines) == 1, (stdout, stderr)
-    assert lines[0]["value"] == 0.0 and "signal" in lines[0]["error"]
-
-
-def test_without_a_card_it_fails_rather_than_run_on_the_cpu():
-    """The default device is the card: with none visible the worker
-    raises and the bench prints its failure line."""
-    proc = _run(env_extra={"CUDA_VISIBLE_DEVICES": ""}, device_cpu=False)
-    assert proc.returncode != 0
-    _failure_line(proc)
-    assert "no CUDA device" in proc.stderr
+# the production schedule of BDM-Blending and BDM-Merging
+MILESTONES = [1000, 968, 936, 872, 128, 64, 32, 0]
+ROLL_STEP = 16
 
 
 def test_synthetic_batch_is_bench_py_batch():
@@ -194,47 +102,22 @@ def test_forward_counter_reads_the_schedule(sampler, want):
     pc2, pvd, merge = production_models(0, "no", False, "cpu", True)
     _stub_forwards(pc2, pvd, merge)
     data = synthetic_batch(1, 4, 16, np.random.default_rng(0))
-    counter = bench.ForwardCounter(pc2=pc2.backbone, pvd=pvd.model,
-                                   fusion=merge.fusion,
-                                   vit=pc2.feature_model)
-    kw = dict(batch=data, num_points=4, milestones=bench.MILESTONES,
-              roll_step=bench.ROLL_STEP, noise=NoiseProvider(0, "cpu"),
+    nets = dict(pc2=pc2.backbone, pvd=pvd.model, fusion=merge.fusion,
+                vit=pc2.feature_model)
+    counts = dict.fromkeys(nets, 0)
+    hooks = [m.register_forward_hook(
+        lambda *_, k=k: counts.__setitem__(k, counts[k] + 1))
+        for k, m in nets.items()]
+    kw = dict(batch=data, num_points=4, milestones=MILESTONES,
+              roll_step=ROLL_STEP, noise=NoiseProvider(0, "cpu"),
               num_inference_steps=1000)
     if sampler == "merging":
         bdm_merging(merge, pc2, pvd, **kw)
     else:
         bdm_blending(pc2, pvd, **kw)
-    counter.close()
-    assert counter.counts == want
-
-
-def _specs(quick, precision):
-    """The kernel set of PC2 and PVD at the bench's shapes; the
-    production specs are built without the models (the ViT is slow to
-    build on the CPU)."""
-    dtype = compute_dtype_of(precision)
-    if quick:
-        pc2, pvd, _ = production_models(0, precision, False, "cpu", True)
-        specs = (pc2.backbone.specs, pvd.model.specs)
-    else:
-        specs = (build_pvcnn2_specs(extra_feature_channels=387),
-                 build_pvcnn2_specs(extra_feature_channels=0))
-    out = set()
-    for sp in specs:
-        out |= bench.path_kernels(sp, 64 if quick else 4096, dtype, True)
-    return out
-
-
-def test_path_kernels_follow_the_dispatch_rules():
-    sampling = {"fps", "ball_query", "three_nn", "scatter_mean", "conv3d",
-                "groupnorm", "devox"}
-    # production bf16: the S 4096 voxel attention and the bf16 blend at
-    # the two FP stages with M >= 128
-    assert _specs(False, "bf16") == sampling | {"attention", "interp_mm"}
-    # float32 takes the gather form of the blend
-    assert _specs(False, "no") == sampling | {"attention"}
-    # --quick: R 4 grids (S 64) and at most 16 centres
-    assert _specs(True, "bf16") == sampling
+    for h in hooks:
+        h.remove()
+    assert counts == want
 
 
 def test_check_launches_raises_on_a_breach():
@@ -287,10 +170,3 @@ def test_check_launches_refuses_the_scalar_blend():
                                                             "scalar": 0}),
                              {"interp_mm", "conv3d"}, False)
 
-
-def test_result_line_keeps_bench_py_keys():
-    sys.path.insert(0, str(ROOT))
-    import bench as jax_bench
-    for sampler in ("blending", "merging"):
-        assert bench.result_json(0.1, 4096, 1000, 8, sampler) == \
-            jax_bench.result_json(0.1, 4096, 1000, 8, sampler)

@@ -14,6 +14,7 @@ import torch
 
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.pvcnn import PVConv
+from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import devox
 from bdm_tpu_torch.parallel import point_sharded as psh
 
@@ -209,9 +210,9 @@ def test_source_split(monkeypatch):
 
 
 def test_cpu_calls_count_nothing():
-    before = (devox.launches, devox.plain_cuda_calls)
+    before = kernels.counts()["devox"]
     ops.gated_devoxelize(*_inputs(1, 8, 4, 8, F32))
-    assert (devox.launches, devox.plain_cuda_calls) == before
+    assert kernels.counts()["devox"] == before
 
 
 def parent_pvconv(m, features, ctx):

@@ -29,6 +29,7 @@ from bdm_tpu_torch.models import graphs
 from bdm_tpu_torch.models.layers import get_timestep_embedding
 from bdm_tpu_torch.models.pvcnn import PVCNN2
 from bdm_tpu_torch.ops import cuda as kernels
+from bdm_tpu_torch.ops.cuda import _lib
 from bdm_tpu_torch.parallel import point_sharded as psh
 from bdm_tpu_torch.tools.standins import TINY_FP, TINY_SA
 from bdm_tpu_torch.utils import spans
@@ -214,7 +215,7 @@ def test_a_replay_adds_what_its_capture_counted(card, monkeypatch):
 
     def counting(fn, inputs):
         def fn_counted(*a):
-            kernels.fps.launches += 1
+            _lib.ledger["fps", "launches"] += 1
             return fn(*a)
         return inner(fn_counted, inputs)
 
@@ -225,13 +226,13 @@ def test_a_replay_adds_what_its_capture_counted(card, monkeypatch):
     try:
         with torch.inference_mode():
             net(x, t)
-            assert kernels.fps.launches == 0    # a capture runs nothing
+            assert kernels.counts()["fps"] == (0, 0)  # a capture runs nothing
             net(x, t)
             net(x, t)
         # each replay: the stand-in's own run and the capture's tally
-        assert kernels.fps.launches == 2 * 2
-        kernels.add_tally(tuple(-v for v in kernels.tally()))
-        assert not any(kernels.tally())
+        assert kernels.counts()["fps"] == (2 * 2, 0)
+        kernels.add_tally({k: -v for k, v in kernels.tally().items()})
+        assert not any(kernels.tally().values())
     finally:
         kernels.reset_counts()
 

@@ -26,6 +26,7 @@ from bdm_tpu_torch.models import layers
 from bdm_tpu_torch.models.fusion import PVCNNFuse
 from bdm_tpu_torch.models.layers import Attention, GroupNormCL, SharedMLP
 from bdm_tpu_torch.models.pvcnn import PVCNN2, PVConv
+from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import groupnorm as gn
 from tests.torch_ranks import TINY_FP, TINY_SA
 
@@ -263,9 +264,9 @@ def test_backward_takes_only_the_gradients_asked_for(monkeypatch):
 
 
 def test_cpu_calls_count_nothing():
-    before = (gn.launches, gn.plain_cuda_calls)
+    before = kernels.counts()["groupnorm"]
     GroupNormCL(8, 16)(_x((2, 8, 16), F32), silu=True)
-    assert (gn.launches, gn.plain_cuda_calls) == before
+    assert kernels.counts()["groupnorm"] == before
 
 
 @pytest.mark.parametrize("s,c,dtype,want", [

@@ -95,6 +95,7 @@ from bdm_tpu.ops.pallas.three_nn import three_nn_pallas
 from bdm_tpu.ops.sampling import furthest_point_sample as jax_fps
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.models.pvcnn import VoxConv
+from bdm_tpu_torch.ops import cuda as kernels
 from bdm_tpu_torch.ops.cuda import (attention as k_attn,
                                     ball_query as k_bq, conv3d as k_conv,
                                     fps as k_fps, interp as k_interp,
@@ -112,6 +113,11 @@ _spec.loader.exec_module(chip_smoke)
 
 LOG2E = math.log2(math.e)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _packs():
+    """The conv weight copies `conv3d.packed` made: its cache misses."""
+    return kernels.tally()["conv3d", "packs"]
 
 
 def _rel(got, want):
@@ -383,10 +389,10 @@ def test_packed_cache_follows_the_parameter(how):
         conv.weight.normal_()
         conv.bias.normal_()
     args = (conv.weight, conv.bias, torch.bfloat16)
-    before = k_conv.packs
+    before = _packs()
     w0, b0 = k_conv.packed(*args)
     w1, b1 = k_conv.packed(*args)
-    assert w1 is w0 and b1 is b0 and k_conv.packs == before + 1
+    assert w1 is w0 and b1 is b0 and _packs() == before + 1
     # the float32 layout is a second entry of the same weight: (Kp,
     # Cout_p), the 6 channels of a tap padded to 8, 27 * 8 to 224 rows
     g0, _ = k_conv.packed(conv.weight, conv.bias, torch.float32)
@@ -423,15 +429,15 @@ def test_packed_cache_through_the_autograd_function():
         conv.weight.normal_()
         conv.bias.zero_()
     x = torch.zeros(2, requires_grad=True)
-    before = k_conv.packs
+    before = _packs()
     for _ in range(3):
         Probe.apply(x, conv.weight, conv.bias)
     with torch.inference_mode():
         Probe.apply(x, conv.weight, conv.bias)
-    assert k_conv.packs == before + 1
+    assert _packs() == before + 1
     other = torch.nn.Parameter(torch.zeros_like(conv.weight))
     Probe.apply(x, other, conv.bias)
-    assert k_conv.packs == before + 2
+    assert _packs() == before + 2
 
 
 @pytest.mark.parametrize("cin,cout,r", chip_smoke.CONVS)

@@ -70,6 +70,8 @@ from bdm_tpu_torch.ops.cuda import (_lib, attention as k_attn,
                                     voxelize as k_vox)
 
 pytestmark = pytest.mark.cuda
+# launches of one GroupNorm call: statistics, apply
+GN_LAUNCHES = _lib.LAUNCHES["bdm_groupnorm"][1]
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -161,7 +163,7 @@ def test_interp_mm_bit_equal(dev, b, n, m, c):
     assert torch.equal(out, k_interp.interp_mm_plain(idx, w, f))
     path = "scalar" if c % 8 else "vec"
     assert kernels.path_counts()["interp_mm"] == {
-        p: int(p == path) for p in k_interp.PATHS}
+        p: int(p == path) for p in kernels.PATHS["interp_mm"]}
 
 
 def test_launch_counters(dev):
@@ -330,11 +332,11 @@ def test_bf16_calls_take_the_tensor_cores(dev):
         "conv3d": {"tc": 3, "simt": 0}, "attention": {"tc": 1, "simt": 0},
         "interp_mm": {"vec": 0, "scalar": 0}}
     assert kernels.counts()["conv3d"] == (3, 0)
-    assert k_conv.packs == 1
+    assert kernels.tally()["conv3d", "packs"] == 1
     with torch.no_grad():
         wt.mul_(2.0)
     doubled = k_conv.conv3d(x, wt, bias)
-    assert k_conv.packs == 2
+    assert kernels.tally()["conv3d", "packs"] == 2
     assert _rel(doubled, k_conv.conv3d_plain(x, wt, bias)) < 1e-2
 
 
@@ -847,10 +849,10 @@ def test_groupnorm_launches_in_a_bf16_pc2_forward(dev):
     kernels.reset_counts()
     calls = _gn_calls(net, x, t)
     assert len(calls) == 63 and sum(c[2] for c in calls) == 62
-    assert kernels.counts()["groupnorm"] == (63 * k_gn.LAUNCHES_A_CALL, 0)
+    assert kernels.counts()["groupnorm"] == (63 * GN_LAUNCHES, 0)
     kernels.reset_counts()
     net(x, t).sum().backward()
-    assert kernels.counts()["groupnorm"] == (63 * k_gn.LAUNCHES_A_CALL, 0)
+    assert kernels.counts()["groupnorm"] == (63 * GN_LAUNCHES, 0)
     assert all(torch.isfinite(p.grad).all() for p in net.parameters()
                if p.requires_grad)
 
@@ -910,7 +912,7 @@ def test_sharded_groupnorm_on_two_ranks(dev, tmp_path, dtype):
     half = 8192 // 2
     for r, o in enumerate(outs):
         rows = slice(r * half, (r + 1) * half)
-        assert o["counts"] == (2 * k_gn.LAUNCHES_A_CALL, 0), o["counts"]
+        assert o["counts"] == (2 * GN_LAUNCHES, 0), o["counts"]
         assert o["again_equal"], r
         y = o["y"].to(dev)
         assert y.dtype == dtype, r

@@ -27,6 +27,7 @@ card by tests/test_torch_kernels_cuda.py.
 
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +51,8 @@ from bdm_tpu.ops.pallas.voxelize import (scatter_sum_pallas,
 from bdm_tpu.ops.voxelize import run_counts_sorted
 from bdm_tpu_torch import ops
 from bdm_tpu_torch.ops import cuda as kernels
-from bdm_tpu_torch.ops.cuda import (attention as k_attn, ball_query as k_bq,
+from bdm_tpu_torch.ops.cuda import (_lib, attention as k_attn,
+                                    ball_query as k_bq,
                                     conv3d as k_conv, devox as k_devox,
                                     fps as k_fps,
                                     groupnorm as k_gn, interp as k_interp,
@@ -247,6 +249,29 @@ def test_interpolate_dispatch(dtype, n, m, onehot):
     if dtype == torch.float32:     # the bf16 blend takes no float32 features
         with pytest.raises(TypeError):
             ops.three_nn_interpolate(pts, ctr, f, impl="onehot")
+
+
+@pytest.mark.parametrize("s,c,kernel", [
+    (4096, 64, True),       # stage 1's voxel attention, R 16
+    (2048, 128, True),
+    (4096, 256, False),     # C past the kernel's MAX_CHANNELS
+    (16, 512, False),       # the global attention over 16 points
+], ids=["S4096-C64", "S2048-C128", "S4096-C256", "S16-C512"])
+def test_attention_dispatch(s, c, kernel):
+    """The reference's gate on shape alone: a tensor off the CPU at a
+    kernel site goes to the kernel (here, with no card, a meta tensor
+    raises there); at another site it runs the plain form, on any
+    device."""
+    from bdm_tpu_torch.ops.attention import uses_kernel
+    assert uses_kernel(s, c) == kernel
+    q = torch.zeros((1, s, c), dtype=torch.bfloat16, device="meta")
+    kernels.reset_counts()
+    if kernel:
+        with pytest.raises((ValueError, RuntimeError)):
+            ops.attention(q, q, q)
+    else:
+        assert ops.attention(q, q, q).shape == (1, s, c)
+    assert kernels.counts()["attention"] == (0, 0)
 
 
 # ---------------------------------------------------------- voxelize
@@ -549,10 +574,10 @@ def test_interp_mm_grad():
         jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()), x).astype(
         jnp.float32) * cot).sum())(jnp.asarray(f).astype(jnp.bfloat16))
     x = _t(f).to(torch.bfloat16).requires_grad_()
-    before = k_ss.plain_cuda_calls
+    before = kernels.counts()["scatter_sum"]
     (k_interp.interp_mm(idx, w, x).float() * _t(cot)).sum().backward()
     assert x.grad.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
-    assert k_ss.plain_cuda_calls == before          # a CPU call counts none
+    assert kernels.counts()["scatter_sum"] == before  # a CPU call: none
     _grad_close(x.grad, want, BF16_ROUNDING)
     # through the dispatching op too
     y = _t(f).to(torch.bfloat16).requires_grad_()
@@ -637,6 +662,35 @@ def test_non_cpu_tensor_never_falls_back(call):
     with pytest.raises((ValueError, TypeError, RuntimeError)):
         call(torch.zeros((1, 16, 3), device="meta"))
     assert all(c[1] == 0 for c in kernels.counts().values())
+
+
+@pytest.mark.parametrize("name", sorted(_lib.LAUNCHES))
+def test_launch_counts_in_the_ledger(name, monkeypatch):
+    """`_lib.launch` counts a launch under its kernel, with its launches
+    a call and its path, on a stand-in library and stream; `add_tally`
+    of a negated tally returns the ledger to zero."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, entry):
+            return lambda *args: calls.append(entry) or 0
+
+    monkeypatch.setattr(_lib, "library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=None))
+    kernel, n = _lib.LAUNCHES[name]
+    path = _lib.PATHS.get(kernel, (None,))[-1]
+    kernels.reset_counts()
+    _lib.launch(name, 0, 1, path=path)
+    assert calls == [name]
+    assert kernels.counts()[kernel] == (n, 0)
+    assert sum(a for a, _ in kernels.counts().values()) == n
+    if path is not None:
+        assert kernels.path_counts()[kernel] == {
+            p: n * (p == path) for p in _lib.PATHS[kernel]}
+    kernels.add_tally({k: -v for k, v in kernels.tally().items()})
+    assert not any(kernels.tally().values())
+    assert all(c == (0, 0) for c in kernels.counts().values())
 
 
 def test_package_imports_without_jax():
