@@ -72,10 +72,11 @@ def check_launches(counts: dict, paths: dict, expected: set,
                    float32: bool) -> dict:
     """Every kernel of `expected` launched and no other; no plain version
     ran on the card; every attention and conv3d launch took the
-    tensor-core kernel ("tc"), on a float32 path the CUDA-core one
-    ("simt"); every blend the vector kernel (the models' widths are
-    multiples of 8). Raises AssertionError on a breach; -> the launches,
-    those of the kernels with paths also by kernel ("conv3d_tc", ...)."""
+    tensor-core kernel ("tc", conv3d's "wgmma"), on a float32 path the
+    CUDA-core one ("simt"); every blend the vector kernel (the models'
+    widths are multiples of 8). Raises AssertionError on a breach; -> the
+    launches, those of the kernels with paths also by kernel
+    ("conv3d_wgmma", ...)."""
     for name, (launches, plain) in counts.items():
         if (launches > 0) != (name in expected):
             raise AssertionError(f"kernel {name} launched {launches} times; "
@@ -84,7 +85,7 @@ def check_launches(counts: dict, paths: dict, expected: set,
             raise AssertionError(f"the plain version of {name} ran on the "
                                  f"card {plain} times")
     out = {k: v[0] for k, v in counts.items()}
-    wrong = {"tc" if float32 else "simt", "scalar"}
+    wrong = {"tc", "wgmma", "scalar"} if float32 else {"simt", "scalar"}
     for name, by in paths.items():
         if sum(by.values()) != out[name]:
             raise AssertionError(f"{name}: {by} launches by kernel, "

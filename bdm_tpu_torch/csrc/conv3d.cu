@@ -9,38 +9,58 @@
 //
 // Bound on the H100: arithmetic. The stage-0 conv alone is
 // 2 * B * R^3 * Cout * 27 * Cin = 22 GFLOP a cloud, far above the bytes it
-// reads. Two kernels, chosen by the grid's type alone (`bdm_conv3d_path`,
-// mirrored by `kernel_path` of ops/cuda/conv3d.py):
+// reads. Two kinds of kernel, chosen by the grid's type alone
+// (`bdm_conv3d_path`, mirrored by `kernel_path` of ops/cuda/conv3d.py):
 //
-// `conv3d_tc_kernel`: bfloat16 grids, any Cin, Cout and R. An implicit GEMM
-// on the tensor cores (`mma.sync.m16n8k16`, bf16 operands, float32
-// accumulators): rows are output voxels, columns output channels, depth
-// 27 taps x Cin. The weights come packed once by the wrapper as
-// (27, Cin_p, Cout_p) bf16, Cin_p a multiple of 16 and Cout_p a multiple of
-// the N tile, zeros in the padding, so a 16-deep step never straddles a tap.
-// A block of eight warps owns a spatial tile of 4 x 8 x 8 output voxels of
-// one cloud (256 rows; a warp 4 x 8 voxels of one z-plane, 32 rows, so each
-// weight fragment it loads feeds two products) times an N tile of 32 or 64
-// channels chosen from Cout, so a narrow Cout masks nothing away. Every
-// block streams all the weights of its N tile from L2, which is what
-// limited a 128-row tile: 256 rows halve that traffic. For each chunk of 16
-// input channels the block stages the tile with its one-voxel halo
-// (6 x 10 x 10 voxels) into shared memory, zero-filled outside the grid and
-// beyond Cin, so every input element is read from L2 2.3 times instead of
-// 27 and borders cost no branch in the inner loop. The 27 taps are 27
-// shifted views of that tile: every lane hands `ldmatrix` its own row
-// address, so a shift is one added constant. The weights of a chunk are
-// walked nine taps (one z-plane of the 3 x 3 x 3) a step through a ring of
-// `cp.async` copies, three stages deep at an N tile of 32 and two at 64
-// (two blocks an SM either way); the halo tile of the next chunk lands in a
-// second buffer meanwhile, a part a step; one barrier a step. Voxel rows of
-// shared memory are 48 bytes apart and weight rows 16 bytes more than their
-// width, so the eight rows of an `ldmatrix` fall into different banks. The
-// halo is staged by 16-byte `cp.async` when Cin is a multiple of 8, by
-// 4-byte `cp.async` when it is even (Cin 390: voxel rows are 780 bytes,
-// 4-byte aligned only), and by plain 2-byte loads when it is odd (Cin 3).
-// The epilogue adds the bias in float32, rounds once and hands the tile
-// through shared memory to 16-byte stores.
+// `conv3d_wgmma_kernel`: bfloat16 grids, any Cin, Cout and R; it replaces
+// `conv3d_ms_pallas` and `conv3d_mm_pallas` (and served `conv3d_pallas` /
+// `conv3d_wg_pallas` contracts at bf16). An implicit GEMM on Hopper's
+// warpgroup tensor cores (`wgmma.mma_async` m64nNk16, bf16 operands both
+// read from shared memory through matrix descriptors, float32 accumulators
+// in registers): rows are output voxels, columns output channels, depth
+// 27 taps x Cin. What bounds it on this card: the operations where N is
+// wide; at Cout 32 the shared-memory reads of A (a 64 x 16 tile, 2 KB, for
+// 64 x 32 x 16 products) pace the tensor cores at about two thirds of their
+// rate. What the design does about it:
+//  * Tiles by shape, never by a knob: an N tile of 32, 64 or 128 from Cout,
+//    so a block stages its halo once for all output channels up to 128;
+//    TZ x 8 x 8 output voxels a block, two consumer warpgroups of P z-planes
+//    each (one m64 product a plane), P 4 / 2 / 2 at N 32 / 64 / 128 where
+//    the grid still gives half the SMs a block, else P 1.
+//  * The 27 taps as shifted views. A chunk of 16 input channels is staged
+//    with its one-voxel halo ((TZ + 2) x 10 x 10 voxels) in the no-swizzle
+//    K-major layout [8-channel half][hz][hy][hx][8 channels]: a voxel is one
+//    16-byte row, 8 neighbouring x form a core matrix, the next y row is the
+//    stride offset (160 bytes), the chunk's other half the leading offset.
+//    Tap (kd, kh, kw) of plane p is the descriptor's start moved by
+//    ((p + kd) 10 + kh) 10 + kw rows: one added constant, and every input
+//    element is read from L2 (TZ + 2) 100 / (64 TZ) times, not 27.
+//  * Fed by a producer. The weights come packed once by the wrapper as
+//    (Cout_p / NT, Cin_p / 16, 3, 9, 2, NT, 8): one (N tile, chunk, kd) is
+//    one contiguous stage of 9 taps in the B layout (core matrices of 8
+//    output x 8 input channels; next 8 outputs 128 bytes on, the chunk's
+//    second half NT x 16 bytes on), fetched by one 1-D bulk copy into a
+//    four-stage ring. The halo arrives by TMA where a voxel's channel row
+//    is 16-byte aligned (Cin % 8 == 0): a 5-D tiled tensor map over
+//    (B, Z, Y, X, C), one box of 8 channels x 10 x 10 x (TZ + 2) a half,
+//    zeros outside the grid and past Cin, the map encoded at each launch
+//    and passed as a `__grid_constant__` parameter (a captured CUDA graph
+//    keeps it). Elsewhere (Cin 390: 780-byte rows; odd Cin) eight staging
+//    warps fill a three-stage ring: a voxel's 32 bytes of the chunk from the
+//    three aligned 16-byte words around them, loaded as vectors and shifted
+//    into place in registers (the block then has the SM to itself; the
+//    loads and their bytes through L1 leave it about a quarter behind TMA
+//    at Cin 392). Full and empty `mbarrier`s a stage (bytes for TMA,
+//    arrivals for the stagers and for every consumer warp); no block-wide
+//    barrier in the main loop.
+//  * Consumers issue a kd plane's 9 taps x P products, commit, and free the
+//    previous plane's stages once `wgmma.wait_group 1` says its products
+//    are done, so one plane's products always queue behind the other's.
+//  * Epilogue: bias in float32, one rounding to bf16, the tile through
+//    shared memory to 16-byte stores where Cout % 8 == 0; ragged Cout and
+//    voxels past the grid masked. Two blocks an SM where accumulators and
+//    rings fit (N x P <= 128 with TMA), so one block's epilogue and
+//    prologue hide under the other's products.
 //
 // `conv3d_simt_halo_kernel` and `conv3d_simt_kernel`: float32 grids (exact
 // float32 products, which TF32 would not give). FFMA on the CUDA cores,
@@ -70,229 +90,319 @@
 // copies' source size 0.
 #include "common.cuh"
 #include "mma.cuh"
+#include "hopper.cuh"
+
+#include <cstring>
 
 #include <cooperative_groups.h>
 
 namespace {
 
-// The N tile the packed weights and bias are padded to (`bdm_conv3d_n_tile`).
+// The N tile of the CUDA-core kernels; their packed weights and bias are
+// padded to a multiple of it.
 int bdm_conv3d_n_tile_of(int cout) { return cout <= 32 ? 32 : 64; }
 
-// ---------------------------------------------------------------- tensor cores
+int sm_count() {
+  static const int count = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return count;
+}
 
-constexpr int kTZ = 4, kTY = 8, kTX = 8;     // output voxels a block
-constexpr int kHY = kTY + 2, kHX = kTX + 2;  // the tile with its halo
-constexpr int kHalo = (kTZ + 2) * kHY * kHX; // 600 voxels
-constexpr int kCK = 16;                      // input channels a chunk
-constexpr int kPitchA = kCK * 2 + 16;        // bytes a staged voxel
-constexpr int kHaloBytes = kHalo * kPitchA;
-constexpr int kHaloPieces = kHalo * (kCK / 8);   // 16-byte pieces
-constexpr int kStepTaps = 9;                 // taps a ring step: one z plane
-constexpr int kChunkSteps = 27 / kStepTaps;
-constexpr int kTcThreads = 256;
+// ------------------------------------------------------ warpgroup tensor cores
 
-// bytes of one ring stage: the weights of kStepTaps taps of a chunk
-template <int NT>
-constexpr int kStageBytesOf = kStepTaps * kCK * (NT * 2 + 16);
+// The N tile of the warpgroup kernel: every output channel of Cout <= 128
+// in one block, so the halo is staged once for all of them.
+int wgmma_n_tile_of(int cout) {
+  return cout <= 32 ? 32 : (cout <= 64 ? 64 : 128);
+}
 
-// ring stages: with an N tile of 64 two of them leave room for two blocks
-// an SM
-template <int NT>
-constexpr int kStagesOf = NT <= 32 ? 3 : 2;
+constexpr int kWgCK = 16;                  // input channels a chunk: one k16
+constexpr int kWgHY = 10, kWgHX = 10;      // the 8 x 8 face with its halo
+constexpr int kWgWeightStages = 4;
+constexpr int kWgConsumers = 2;            // consumer warpgroups
+constexpr int kWgBarBytes = 1024;          // the rings' barriers
+constexpr int kSmemPerSM = 233472;         // bytes of shared memory an SM
 
-template <int NT>
-__global__ void __launch_bounds__(kTcThreads, 2)
-    conv3d_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ wp,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int r, int cin,
-                     int cin_p, int cout, int cout_p) {
-  constexpr int STAGES = kStagesOf<NT>;
-  constexpr int kPitchB = NT * 2 + 16;       // bytes a staged weight row
-  constexpr int kStageBytes = kStageBytesOf<NT>;
-  constexpr int kNTiles = NT / 8;
-  // the next chunk's halo tile is fetched in parts, one a step, early
-  // enough for the last part to have landed when the chunk begins
-  constexpr int kHaloParts = kChunkSteps - STAGES + 2;
-  constexpr int kPartPieces = (kHaloPieces + kHaloParts - 1) / kHaloParts;
-  extern __shared__ __align__(16) unsigned char smem[];
-  static_assert(kTcThreads * (NT * 2 + 16) <= 2 * kHaloBytes,
-                "the output tile is staged where the halo was");
-  unsigned char* halo_s = smem;                    // [2][kHalo][kPitchA]
-  unsigned char* w_s = smem + 2 * kHaloBytes;      // [STAGES][9*16][kPitchB]
+// A block of the warpgroup kernel: TZ x 8 x 8 output voxels, each consumer
+// warpgroup P z-planes of 64 rows (one m64 product each), times an N tile.
+// One producer warp issues the weights (and, with TMA, the halo); without
+// TMA eight more warps stage the halo (a third stage lets them run ahead)
+// and the block has the SM to itself.
+template <int NT, int P, bool TMA>
+struct WgTile {
+  static constexpr int TZ = kWgConsumers * P;
+  static constexpr int HV = (TZ + 2) * kWgHY * kWgHX;   // halo voxels
+  static constexpr int GROUP = HV * 16;          // bytes of 8 channels
+  static constexpr int HALO_STAGE = 2 * GROUP;   // one chunk of 16
+  static constexpr int HALO_STAGES = TMA ? 2 : 3;
+  static constexpr int W_STAGE = 9 * kWgCK * NT * 2;   // one kd plane of taps
+  static constexpr int SMEM = kWgBarBytes + HALO_STAGES * HALO_STAGE +
+                              kWgWeightStages * W_STAGE;
+  static constexpr int STAGERS = TMA ? 0 : 256;   // halo threads
+  static constexpr int THREADS = kWgConsumers * 128 + 32 + STAGERS;
+  static constexpr int OUT_PITCH = NT * 2 + 16;  // a staged output row
+  // two blocks an SM where their accumulators and rings fit
+  static constexpr int MIN_BLOCKS =
+      TMA && NT * P <= 128 && 2 * (SMEM + 1024) <= kSmemPerSM ? 2 : 1;
+  static_assert(GROUP % 128 == 0 && W_STAGE % 128 == 0, "TMA alignment");
+  static_assert(SMEM + 1024 <= kSmemPerSM, "one block an SM");
+  static_assert(kWgConsumers * P * 64 * OUT_PITCH <= SMEM - kWgBarBytes,
+                "the output tile is staged where the rings were");
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wz = warp >> 1, wy = (warp & 1) * 4;   // the warp's 4 x 8 rows
-  const int ntx = (r + kTX - 1) / kTX;
-  const int nty = (r + kTY - 1) / kTY;
-  const int ntz = (r + kTZ - 1) / kTZ;
+// The halo of one chunk staged without TMA (a voxel's channel row not
+// 16-byte aligned: Cin 390's 780-byte rows, odd Cin) by THREADS staging
+// threads: [half][hz][hy][hx][8 channels], zeros outside the grid and past
+// Cin. Thread t takes halo voxels t, t + THREADS, ...; the chunk's 32 bytes
+// of a voxel lie in the three aligned 16-byte words around them, loaded as
+// vectors (four voxels' before any store), shifted into place (whole
+// words, then half a word) and masked past Cin. A word that starts inside
+// the tensor lies in its page, so reading it whole is safe.
+template <int TZ2, int THREADS>
+__device__ __forceinline__ void wg_stage_halo(
+    unsigned char* dst, const __nv_bfloat16* __restrict__ x, int batch,
+    int b, int r, int cin, int c0, int z0, int y0, int x0, int t) {
+  constexpr int HV = TZ2 * kWgHY * kWgHX;
+  constexpr int GROUP = HV * 16;
+  constexpr int ITEMS = 4;   // voxels a thread a round, loads in flight
+  const uintptr_t end = reinterpret_cast<uintptr_t>(
+      x + static_cast<size_t>(batch) * r * r * r * cin);
+  for (int h0 = t; h0 < HV; h0 += THREADS * ITEMS) {
+    uint4 w[ITEMS][3];
+    int shift[ITEMS];
+    bool in[ITEMS];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int hv = h0 + THREADS * k;
+      const int hz = hv / (kWgHY * kWgHX);
+      const int rem = hv - hz * (kWgHY * kWgHX);
+      const int hy = rem / kWgHX, hx = rem - hy * kWgHX;
+      const int gz = z0 - 1 + hz, gy = y0 - 1 + hy, gx = x0 - 1 + hx;
+      in[k] = hv < HV && gz >= 0 && gz < r && gy >= 0 && gy < r && gx >= 0 &&
+              gx < r;
+      const uintptr_t a = reinterpret_cast<uintptr_t>(
+          x + (((static_cast<size_t>(b) * r + (in[k] ? gz : 0)) * r +
+                (in[k] ? gy : 0)) * r + (in[k] ? gx : 0)) * cin + c0);
+      shift[k] = static_cast<int>(a & 15);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const uintptr_t word = (a & ~static_cast<uintptr_t>(15)) + 16 * q;
+        w[k][q] = in[k] && word < end
+                      ? *reinterpret_cast<const uint4*>(word)
+                      : make_uint4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int hv = h0 + THREADS * k;
+      if (hv >= HV) continue;
+      uint32_t v[12] = {w[k][0].x, w[k][0].y, w[k][0].z, w[k][0].w,
+                        w[k][1].x, w[k][1].y, w[k][1].z, w[k][1].w,
+                        w[k][2].x, w[k][2].y, w[k][2].z, w[k][2].w};
+      // whole words: by 2, then by 1; then half a word (odd Cin)
+      const int o = shift[k] >> 2;
+#pragma unroll
+      for (int i = 0; i < 10; ++i) v[i] = (o & 2) ? v[i + 2] : v[i];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) v[i] = (o & 1) ? v[i + 1] : v[i];
+      uint32_t out[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        out[i] = (shift[k] & 2) ? __funnelshift_r(v[i], v[i + 1], 16) : v[i];
+        const int ch = c0 + 2 * i;   // zeros past Cin (and off the grid)
+        if (!in[k] || ch >= cin) out[i] = 0;
+        else if (ch + 1 >= cin) out[i] &= 0xFFFFu;
+      }
+      *reinterpret_cast<uint4*>(dst + hv * 16) =
+          make_uint4(out[0], out[1], out[2], out[3]);
+      *reinterpret_cast<uint4*>(dst + GROUP + hv * 16) =
+          make_uint4(out[4], out[5], out[6], out[7]);
+    }
+  }
+}
+
+// Warp-specialised implicit GEMM on the warpgroup tensor cores (see the head
+// of this file). Barriers at the base of shared memory: halo full / empty,
+// weights full / empty; then the halo ring, then the weight ring.
+template <int NT, int P, bool TMA>
+__global__ void __launch_bounds__(WgTile<NT, P, TMA>::THREADS,
+                                  WgTile<NT, P, TMA>::MIN_BLOCKS)
+    conv3d_wgmma_kernel(__grid_constant__ const CUtensorMap tmap,
+                        const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ wp,
+                        const float* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ out, int batch, int r,
+                        int cin, int cout) {
+  using T = WgTile<NT, P, TMA>;
+  constexpr int HS = T::HALO_STAGES, WS = kWgWeightStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t bar0 = smem_u32(smem);
+  const uint32_t h_full = bar0, h_empty = bar0 + 8 * HS;
+  const uint32_t w_full = bar0 + 16 * HS, w_empty = w_full + 8 * WS;
+  unsigned char* halo_s = smem + kWgBarBytes;
+  const uint32_t halo_a = bar0 + kWgBarBytes;
+  const uint32_t w_a = halo_a + HS * T::HALO_STAGE;
+
+  const int ntx = (r + 7) / 8;
+  const int ntz = (r + T::TZ - 1) / T::TZ;
   int tile = blockIdx.x;
-  const int x0 = (tile % ntx) * kTX;
+  const int x0 = tile % ntx * 8;
   tile /= ntx;
-  const int y0 = (tile % nty) * kTY;
-  tile /= nty;
-  const int z0 = (tile % ntz) * kTZ;
+  const int y0 = tile % ntx * 8;
+  tile /= ntx;
+  const int z0 = tile % ntz * T::TZ;
   const int b = tile / ntz;
-  const int n0 = blockIdx.y * NT;
-  // how the halo is staged: by the alignment of a voxel's channel row
-  const int vec = cin % 8 == 0 ? 16 : (cin % 2 == 0 ? 4 : 2);
+  const int ntile = blockIdx.y;
+  const int nchunks = (cin + kWgCK - 1) / kWgCK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  auto load_halo = [&](int buf, int chunk, int lo, int hi) {
-    unsigned char* dst_buf = halo_s + buf * kHaloBytes;
-    for (int p = lo + tid; p < hi; p += kTcThreads) {
-      const int hv = p / (kCK / 8), piece = p % (kCK / 8);
-      const int ch = chunk * kCK + piece * 8;
-      const int hz = hv / (kHY * kHX);
-      const int rem = hv - hz * (kHY * kHX);
-      const int hy = rem / kHX;
-      const int hx = rem - hy * kHX;
-      const int gz = z0 + hz - 1, gy = y0 + hy - 1, gx = x0 + hx - 1;
-      const bool inside =
-          gz >= 0 && gz < r && gy >= 0 && gy < r && gx >= 0 && gx < r;
-      const int nvalid = inside ? max(0, min(8, cin - ch)) : 0;
-      const __nv_bfloat16* src = x;
-      if (nvalid > 0)
-        src = x + (((static_cast<size_t>(b) * r + gz) * r + gy) * r + gx) *
-                      cin + ch;
-      unsigned char* dst = dst_buf + hv * kPitchA + piece * 16;
-      if (vec == 16) {
-        cp_async16(smem_u32(dst), src, nvalid * 2);
-      } else if (vec == 4) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = 2 * j < nvalid;   // nvalid is even here
-          cp_async4(smem_u32(dst) + 4 * j, ok ? src + 2 * j : x, ok ? 4 : 0);
-        }
-      } else {
-        __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          d[j] = j < nvalid ? src[j] : __float2bfloat16_rn(0.0f);
-      }
+  if (threadIdx.x == 0) {
+    // full: the producer's one arrival (TMA) or every staging thread's;
+    // empty: every consumer warp
+    for (int s = 0; s < HS; ++s) {
+      mbar_init(h_full + 8 * s, TMA ? 1 : T::STAGERS);
+      mbar_init(h_empty + 8 * s, kWgConsumers * 4);
     }
-  };
-
-  // the weights of one ring step: taps 9j .. 9j+8 (the plane kd = j) of a
-  // chunk
-  auto load_weights = [&](int stage, int chunk, int j) {
-    const uint32_t dst_stage = smem_u32(w_s) + stage * kStageBytes;
-    for (int p = tid; p < kStepTaps * kCK * kNTiles; p += kTcThreads) {
-      const int piece = p % kNTiles;
-      const int row = p / kNTiles;          // tap * kCK + channel
-      const __nv_bfloat16* src =
-          wp + (static_cast<size_t>(kStepTaps * j + row / kCK) * cin_p +
-                chunk * kCK + row % kCK) * cout_p + n0 + piece * 8;
-      cp_async16(dst_stage + row * kPitchB + piece * 16, src, 16);
+    for (int s = 0; s < WS; ++s) {
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, kWgConsumers * 4);
     }
-  };
-
-  const int nchunks = cin_p / kCK;
-  const int nsteps = nchunks * kChunkSteps;
-
-  // prologue: the first halo tile and the first STAGES - 1 steps
-  load_halo(0, 0, 0, kHaloPieces);
-  load_weights(0, 0, 0);
-  cp_async_commit();
-#pragma unroll
-  for (int st = 1; st < STAGES - 1; ++st) {
-    load_weights(st, st / kChunkSteps, st % kChunkSteps);
-    cp_async_commit();
+    mbar_fence_init();
   }
-
-  float acc[2][kNTiles][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-  // ldmatrix row addresses of this lane. A: row i of 16-row tile mt is the
-  // output voxel (z = wz, y = wy + 2 mt + i / 8, x = i % 8), read at its
-  // tap's shift inside the halo tile. B: weight rows are the depth
-  // (transposed).
-  uint32_t a_lane[2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-    a_lane[mt] = smem_u32(halo_s) +
-                 ((wz * kHY + wy + 2 * mt + ((lane >> 3) & 1)) * kHX +
-                  (lane & 7)) * kPitchA + (lane >> 4) * 16;
-  const uint32_t b_lane = smem_u32(w_s) +
-                          ((lane & 7) + ((lane >> 3) & 1) * 8) * kPitchB +
-                          (lane >> 4) * 16;
-
-  int it = 0, j = 0;                        // chunk and plane computed
-  int pf_it = (STAGES - 1) / kChunkSteps;   // ... and fetched
-  int pf_j = (STAGES - 1) % kChunkSteps;
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<STAGES - 2>();    // this step's group has landed
-    __syncthreads();                // ... for every thread; step - 1 is done
-    if (step + STAGES - 1 < nsteps)
-      load_weights((step + STAGES - 1) % STAGES, pf_it, pf_j);
-    if (j < kHaloParts && it + 1 < nchunks)
-      load_halo((it + 1) & 1, it + 1, j * kPartPieces,
-                min((j + 1) * kPartPieces, kHaloPieces));
-    cp_async_commit();
-    if (++pf_j == kChunkSteps) {
-      pf_j = 0;
-      ++pf_it;
-    }
-
-    const uint32_t a_st = (it & 1) * kHaloBytes + j * kHY * kHX * kPitchA;
-    const uint32_t b_st = b_lane + (step % STAGES) * kStageBytes;
-    // tap (kd, kh, kw) = (j, tp / 3, tp % 3)
-#pragma unroll
-    for (int tp = 0; tp < kStepTaps; ++tp) {
-      const uint32_t a_off = a_st + ((tp / 3) * kHX + tp % 3) * kPitchA;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(a[mt], a_lane[mt] + a_off);
-#pragma unroll
-      for (int np = 0; np < kNTiles / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, b_st + tp * kCK * kPitchB + np * 32);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bf[0], bf[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bf[2], bf[3]);
-        }
-      }
-    }
-    if (++j == kChunkSteps) {
-      j = 0;
-      ++it;
-    }
-  }
-
-  // bias in float32 and one rounding; the tile goes through shared memory
-  // (the halo buffers are free now), each warp its own 32 rows, so that it
-  // leaves in 16-byte stores
   __syncthreads();
-  constexpr int kPitchO = NT * 2 + 16;
-  unsigned char* o_s = smem + warp * 32 * kPitchO;
+
+  if (warp == kWgConsumers * 4) {
+    // ---- producer: each chunk's weights plane by plane (and its halo by
+    // TMA first), never held up by the halo's loads
+    int wit = 0;
+    for (int c = 0; c < nchunks; ++c) {
+      if constexpr (TMA) {
+        const int hs = c % HS;
+        mbar_wait(h_empty + 8 * hs, ((c / HS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(h_full + 8 * hs, T::HALO_STAGE);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        const int col = nt * 8 + 2 * t;   // bias is padded to Cout_p
-        *reinterpret_cast<__nv_bfloat162*>(
-            o_s + (mt * 16 + h * 8 + g) * kPitchO + col * 2) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * h] + bias[n0 + col],
-                                  acc[mt][nt][2 * h + 1] + bias[n0 + col + 1]);
+          for (int g = 0; g < 2; ++g)
+            tma_load_5d(halo_a + hs * T::HALO_STAGE + g * T::GROUP, &tmap,
+                        h_full + 8 * hs, c * kWgCK + 8 * g, x0 - 1, y0 - 1,
+                        z0 - 1, b);
+        }
       }
-  __syncwarp();
+      for (int kd = 0; kd < 3; ++kd, ++wit) {
+        const int ws = wit % WS;
+        mbar_wait(w_empty + 8 * ws, ((wit / WS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(w_full + 8 * ws, T::W_STAGE);
+          bulk_load(w_a + ws * T::W_STAGE,
+                    wp + ((static_cast<size_t>(ntile) * nchunks + c) * 3 + kd) *
+                             (T::W_STAGE / 2),
+                    T::W_STAGE, w_full + 8 * ws);
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (!TMA) {
+    if (warp > kWgConsumers * 4) {
+      // ---- halo stagers
+      const int pt = threadIdx.x - (kWgConsumers * 128 + 32);
+      for (int c = 0; c < nchunks; ++c) {
+        const int hs = c % HS;
+        mbar_wait(h_empty + 8 * hs, ((c / HS) & 1) ^ 1);
+        wg_stage_halo<T::TZ + 2, T::STAGERS>(halo_s + hs * T::HALO_STAGE, x,
+                                             batch, b, r, cin, c * kWgCK, z0,
+                                             y0, x0, pt);
+        // seen by the async proxy that wgmma reads through
+        fence_proxy_async();
+        mbar_arrive(h_full + 8 * hs);
+      }
+      return;
+    }
+  }
+
+  // ---- consumers: warpgroup wg computes z planes wg P .. wg P + P - 1
+  const int wg = warp >> 2;
+  float acc[P][NT / 2];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[p][i] = 0.0f;
+  // A: row 8 y + x of a plane is the halo voxel (y + kh, x + kw) of plane
+  // z + kd: 8-row groups one halo row (160 bytes) apart, the two 8-channel
+  // halves of a chunk one group apart. B: (tap, channel group, n, 8).
+  const uint64_t a_desc = wgmma_desc(
+      halo_a + wg * P * kWgHY * kWgHX * 16, T::GROUP, kWgHX * 16);
+  const uint64_t b_desc = wgmma_desc(w_a, NT * 16, 128);
+  int wit = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    const int hs = c % HS;
+    mbar_wait(h_full + 8 * hs, (c / HS) & 1);
+    for (int kd = 0; kd < 3; ++kd, ++wit) {
+      const int ws = wit % WS;
+      mbar_wait(w_full + 8 * ws, (wit / WS) & 1);
+      // descriptors count in 16-byte units: one halo voxel, one weight row
+      const uint64_t a_st =
+          a_desc + hs * (T::HALO_STAGE / 16) + kd * kWgHY * kWgHX;
+      const uint64_t b_st = b_desc + ws * (T::W_STAGE / 16);
+#pragma unroll
+      for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int t9 = 0; t9 < 9; ++t9)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          Wgmma<NT>::mma(acc[p], a_st + (p * kWgHY + t9 / 3) * kWgHX + t9 % 3,
+                         b_st + t9 * 2 * NT);
+      wgmma_commit();
+#pragma unroll
+      for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+      // the previous step's products are done: free its stages
+      wgmma_wait<1>();
+#pragma unroll
+      for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+      if (lane == 0 && wit > 0) {
+        mbar_arrive(w_empty + 8 * ((wit - 1) % WS));
+        if (kd == 0) mbar_arrive(h_empty + 8 * ((c - 1) % HS));
+      }
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+
+  // ---- epilogue: bias in float32 and one rounding; the tile goes through
+  // shared memory (the rings are free once both warpgroups are done), each
+  // warpgroup its own rows, so that it leaves in 16-byte stores
+  named_barrier(1, kWgConsumers * 128);
+  unsigned char* o_s = halo_s + wg * P * 64 * T::OUT_PITCH;
+  const int n0 = ntile * NT;
+  const int g = lane >> 2, t = lane & 3, wq = warp & 3;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < NT / 8; ++i) {
+      const int col = 8 * i + 2 * t;   // bias is padded to Cout_p
+      const float b0 = bias[n0 + col], b1 = bias[n0 + col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(
+            o_s + (p * 64 + 16 * wq + g + 8 * h) * T::OUT_PITCH + 2 * col) =
+            __floats2bfloat162_rn(acc[p][4 * i + 2 * h] + b0,
+                                  acc[p][4 * i + 2 * h + 1] + b1);
+    }
+  named_barrier(2 + wg, 128);
   const bool whole = cout % 8 == 0;   // rows of the output 16-byte aligned
-  const int gz = z0 + wz;
-  for (int p = lane; p < 32 * kNTiles; p += 32) {
-    const int row = p / kNTiles, piece = p % kNTiles;
-    const int gy = y0 + wy + row / 8, gx = x0 + row % 8;
+  for (int q = threadIdx.x & 127; q < P * 64 * (NT / 8); q += 128) {
+    const int row = q / (NT / 8), piece = q % (NT / 8);
+    const int gz = z0 + wg * P + (row >> 6);
+    const int gy = y0 + ((row >> 3) & 7), gx = x0 + (row & 7);
     const int col = n0 + piece * 8;
     if (gz >= r || gy >= r || gx >= r || col >= cout) continue;
-    const unsigned char* from = o_s + row * kPitchO + piece * 16;
+    const unsigned char* from = o_s + row * T::OUT_PITCH + piece * 16;
     __nv_bfloat16* to =
         out + (((static_cast<size_t>(b) * r + gz) * r + gy) * r + gx) * cout +
         col;
@@ -305,22 +415,111 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
-template <int NT>
-int launch_tc(const void* x, const void* wp, const float* bias, void* out,
-              int b, int r, int cin, int cout, cudaStream_t stream) {
-  const int cin_p = (cin + kCK - 1) / kCK * kCK;
-  const int cout_p = (cout + NT - 1) / NT * NT;
-  const size_t smem = 2 * kHaloBytes + kStagesOf<NT> * kStageBytesOf<NT>;
-  cudaError_t err = bdm_allow_smem(conv3d_tc_kernel<NT>, smem);
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// `cuTensorMapEncodeTiled` from libcuda, looked up through the runtime (no
+// link to libcuda needed).
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <int NT, int P, bool TMA>
+int launch_wgmma(const void* x, const void* wp, const float* bias, void* out,
+                 int b, int r, int cin, int cout, cudaStream_t stream) {
+  using T = WgTile<NT, P, TMA>;
+  // the tensor map goes to the kernel by value (a `__grid_constant__`
+  // parameter), so a captured CUDA graph keeps it
+  CUtensorMap tmap;
+  memset(&tmap, 0, sizeof(tmap));
+  if (TMA) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t e = sizeof(__nv_bfloat16);
+    const cuuint64_t dims[5] = {static_cast<cuuint64_t>(cin),
+                                static_cast<cuuint64_t>(r),
+                                static_cast<cuuint64_t>(r),
+                                static_cast<cuuint64_t>(r),
+                                static_cast<cuuint64_t>(b)};
+    const cuuint64_t strides[4] = {dims[0] * e, dims[0] * dims[1] * e,
+                                   dims[0] * dims[1] * dims[2] * e,
+                                   dims[0] * dims[1] * dims[2] * dims[3] * e};
+    const cuuint32_t box[5] = {8, kWgHX, kWgHY, T::TZ + 2, 1};
+    const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+    if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+               const_cast<void*>(x), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = bdm_allow_smem(conv3d_wgmma_kernel<NT, P, TMA>, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((r + kTX - 1) / kTX) * ((r + kTY - 1) / kTY) *
-                    ((r + kTZ - 1) / kTZ);
-  const dim3 grid(static_cast<unsigned>(b) * tiles, cout_p / NT);
-  conv3d_tc_kernel<NT><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
+  const int ntx = (r + 7) / 8, ntz = (r + T::TZ - 1) / T::TZ;
+  const int cout_p = (cout + NT - 1) / NT * NT;
+  const dim3 grid(static_cast<unsigned>(b) * ntx * ntx * ntz, cout_p / NT);
+  conv3d_wgmma_kernel<NT, P, TMA><<<grid, T::THREADS, T::SMEM, stream>>>(
+      tmap, static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(wp), bias,
-      static_cast<__nv_bfloat16*>(out), r, cin, cin_p, cout, cout_p);
+      static_cast<__nv_bfloat16*>(out), b, r, cin, cout);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The z-planes a consumer warpgroup takes, by shape: the deep tile (fewer
+// halo planes and weight reads a voxel) where its grid gives at least half
+// the SMs a block; below that one plane, with twice the blocks, is faster
+// (on the H100 SXM: 1.8x at 16 to 64 deep blocks, 3-8 % slower at 96 to
+// 128). Without TMA at N 128, a plane's 64 accumulators a thread and the
+// stagers' share leave room for one.
+int wgmma_planes(int b, int r, int cout, bool tma) {
+  const int nt = wgmma_n_tile_of(cout);
+  const int deep = nt == 32 ? 4 : (nt == 64 || tma ? 2 : 1);
+  const int ntx = (r + 7) / 8, tz = kWgConsumers * deep;
+  const long long blocks = static_cast<long long>(b) * ntx * ntx *
+                           ((r + tz - 1) / tz) * ((cout + nt - 1) / nt);
+  return deep > 1 && 2 * blocks >= sm_count() ? deep : 1;
+}
+
+// TMA where a voxel's channel row is 16-byte aligned, staging warps
+// elsewhere; the N tile from Cout, the planes from the grid.
+int launch_wgmma_bf16(const void* x, const void* wp, const float* bias,
+                      void* out, int b, int r, int cin, int cout,
+                      cudaStream_t stream) {
+  const bool tma =
+      cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int nt = wgmma_n_tile_of(cout);
+  const bool deep = wgmma_planes(b, r, cout, tma) > 1;
+#define BDM_WG(NT_, P_, TMA_)                                              \
+  return launch_wgmma<NT_, P_, TMA_>(x, wp, bias, out, b, r, cin, cout, \
+                                     stream)
+  if (tma) {
+    if (nt == 32) { if (deep) BDM_WG(32, 4, true); BDM_WG(32, 1, true); }
+    if (nt == 64) { if (deep) BDM_WG(64, 2, true); BDM_WG(64, 1, true); }
+    if (deep) BDM_WG(128, 2, true);
+    BDM_WG(128, 1, true);
+  }
+  if (nt == 32) { if (deep) BDM_WG(32, 4, false); BDM_WG(32, 1, false); }
+  if (nt == 64) { if (deep) BDM_WG(64, 2, false); BDM_WG(64, 1, false); }
+  BDM_WG(128, 1, false);
+#undef BDM_WG
 }
 
 // ------------------------------------------------------------------ CUDA cores
@@ -747,16 +946,6 @@ __global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
 using HaloTile64 = HaloTile<4, 64, 8, 256, 1>;
 using HaloTile32 = HaloTile<2, 32, 4, 128, 3>;
 
-int sm_count() {
-  static const int count = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
-  return count;
-}
-
 template <typename Tile>
 int launch_simt(const void* x, const void* w, const float* bias, void* out,
                 int b, int r, int cin, int cout, int cout_p,
@@ -864,44 +1053,49 @@ int launch_simt_f32(const void* x, const void* w, const float* bias,
 
 }  // namespace
 
-// Which kernel a call takes: 1 the tensor-core kernel, 0 the CUDA-core one.
-// A rule on the grid's type alone.
+// Which kernel a call takes: 2 the warpgroup tensor-core kernel, 0 the
+// CUDA-core one. A rule on the grid's type alone.
 BDM_EXPORT int bdm_conv3d_path(int dtype, int cin, int cout, int r) {
   (void)cin;
   (void)cout;
   (void)r;
-  return dtype == BDM_BF16 ? 1 : 0;
+  return dtype == BDM_BF16 ? 2 : 0;
 }
 
-// The N tile of both kernels, chosen from Cout; the packed weights and
-// bias are padded to a multiple of it.
-BDM_EXPORT int bdm_conv3d_n_tile(int cout) {
-  return bdm_conv3d_n_tile_of(cout);
+// The z-planes a consumer warpgroup of the warpgroup kernel takes for a
+// grid of `dtype` (0 for the CUDA-core kernels) whose start is 16-byte
+// `aligned` or not.
+BDM_EXPORT int bdm_conv3d_planes(int dtype, int b, int r, int cin, int cout,
+                                 int aligned) {
+  if (dtype != BDM_BF16) return 0;
+  return wgmma_planes(b, r, cout, cin % 8 == 0 && aligned);
+}
+
+// The N tile of the kernel a grid of `dtype` takes, chosen from Cout; the
+// packed weights and bias are padded to a multiple of it.
+BDM_EXPORT int bdm_conv3d_n_tile(int dtype, int cout) {
+  return dtype == BDM_BF16 ? wgmma_n_tile_of(cout) : bdm_conv3d_n_tile_of(cout);
 }
 
 // `w` and `bias` as the wrapper packs them for the path the call takes:
-// (27, Cin_p, Cout_p) bf16 and (Cout_p,) float32 for the tensor-core
-// kernel, (Kp, Cout_p) float32 (rows (tap, channel), the channels of a tap
-// padded to a multiple of 4, Kp to one of 16) and (Cout_p,) float32 for
-// the other; both 16-byte aligned.
+// (Cout_p / NT, Cin_p / 16, 3, 9, 2, NT, 8) bf16 (N tile, chunk of 16
+// input channels, kd, (kh, kw), 8-channel group, output channel, channel)
+// and (Cout_p,) float32 for the warpgroup kernel; (Kp, Cout_p) float32
+// (rows (tap, channel), the channels of a tap padded to a multiple of 4, Kp
+// to one of 16) and (Cout_p,) float32 for the other; both 16-byte aligned.
 BDM_EXPORT int bdm_conv3d(const void* x, const void* w, const float* bias,
                           void* out, int b, int r, int cin, int cout,
                           int dtype, cudaStream_t stream) {
   if (b < 1 || r < 1 || cin < 1 || cout < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == BDM_BF16) {
-    // x as the halo is staged (16-, 4- or 2-byte copies by Cin), the
-    // packed weights for 16-byte copies, out for 16-byte stores when its
-    // rows allow them
-    const uintptr_t x_align = cin % 8 == 0 ? 16 : (cin % 2 == 0 ? 4 : 2);
+    // the packed weights for bulk copies, out for 16-byte stores when its
+    // rows allow them; x takes the widest copy its alignment allows
     const uintptr_t out_align = cout % 8 == 0 ? 16 : 2;
-    if (reinterpret_cast<uintptr_t>(x) % x_align != 0 ||
-        reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+    if (reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(out) % out_align != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-    if (bdm_conv3d_n_tile(cout) == 32)
-      return launch_tc<32>(x, w, bias, out, b, r, cin, cout, stream);
-    return launch_tc<64>(x, w, bias, out, b, r, cin, cout, stream);
+    return launch_wgmma_bf16(x, w, bias, out, b, r, cin, cout, stream);
   }
   if (reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(bias) % 16 != 0)

@@ -1,6 +1,7 @@
-// PTX wrappers for the tensor-core kernels (attention.cu, conv3d.cu):
-// asynchronous copies into shared memory, `ldmatrix` fragment loads and the
-// bf16 x bf16 -> float32 warp product `mma.sync.m16n8k16`.
+// PTX wrappers for the warp-level tensor-core kernel (attention.cu) and the
+// CUDA-core convs of conv3d.cu: asynchronous copies into shared memory,
+// `ldmatrix` fragment loads and the bf16 x bf16 -> float32 warp product
+// `mma.sync.m16n8k16`.
 //
 // Fragment layout of one m16n8k16 product, lane = 4 * g + t:
 //   A (16 x 16, row-major), four registers of two bf16 (low half = lower

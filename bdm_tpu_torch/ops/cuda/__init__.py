@@ -6,9 +6,9 @@ its CUDA kernel for a CUDA tensor (or raises). One ledger, kept by
 `_lib.launch`, counts each kernel's launches and the calls of its plain
 version on CUDA tensors (`counts`), so a run can show which path it took.
 Where a source holds several kernels (`PATHS`) it counts the launches of
-each (`path_counts`): attention and conv3d "tc" (tensor cores) and "simt"
-(CUDA cores), the blend "vec" (16-byte channel groups) and "scalar" (one
-channel).
+each (`path_counts`): attention "tc" (tensor cores) and "simt" (CUDA
+cores), conv3d "wgmma" (warpgroup tensor cores) and "simt", the blend "vec"
+(16-byte channel groups) and "scalar" (one channel).
 """
 
 from __future__ import annotations
@@ -79,8 +79,8 @@ def counts() -> dict:
 
 def path_counts() -> dict:
     """name -> {path: launches of that kernel}, for the kernels with
-    `PATHS` (attention and conv3d: "tc", "simt"; interp_mm: "vec",
-    "scalar")."""
+    `PATHS` (attention: "tc", "simt"; conv3d: "wgmma", "simt"; interp_mm:
+    "vec", "scalar")."""
     return {name: {path: ledger[name, path] for path in paths}
             for name, paths in PATHS.items()}
 

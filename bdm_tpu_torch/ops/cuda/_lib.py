@@ -56,7 +56,8 @@ _SIGNATURES = {
     # the sources' own rules, which the wrappers mirror
     "bdm_attention_path": (_I, _I, _I),
     "bdm_conv3d_path": (_I, _I, _I, _I),
-    "bdm_conv3d_n_tile": (_I,),
+    "bdm_conv3d_planes": (_I, _I, _I, _I, _I, _I),
+    "bdm_conv3d_n_tile": (_I, _I),
     "bdm_fps_threads": (_I,),
     "bdm_fps_points": (_I,),
     "bdm_three_nn_lanes": (_I, _I, _I),
@@ -84,9 +85,10 @@ LAUNCHES = {
     "bdm_devox": ("devox", 1),
 }
 # kernel -> the kernels of its source a wrapper chooses between:
-# tensor cores ("tc") or CUDA cores ("simt"); 16-byte channel groups
-# ("vec") or one channel ("scalar")
-PATHS = {"attention": ("tc", "simt"), "conv3d": ("tc", "simt"),
+# tensor cores ("tc": `mma.sync`; "wgmma": Hopper's warpgroup products) or
+# CUDA cores ("simt"); 16-byte channel groups ("vec") or one channel
+# ("scalar")
+PATHS = {"attention": ("tc", "simt"), "conv3d": ("wgmma", "simt"),
          "interp_mm": ("vec", "scalar")}
 
 # (kernel, "launches" | a path | "plain" | "packs") -> count

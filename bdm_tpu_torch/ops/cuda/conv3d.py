@@ -1,22 +1,24 @@
-"""3x3x3 SAME voxel convolution: the `csrc/conv3d.cu` kernel and its plain
-version.
+"""3x3x3 SAME voxel convolution: the `csrc/conv3d.cu` kernels and their
+plain version.
 
 Replaces every voxel conv of bdm_tpu/ops/pallas/conv3d.py: `conv3d_pallas`
 (any R, per-slab im2col), `conv3d_wg_pallas` (whole grid a batch element),
 `conv3d_ms_pallas` (Cin <= 256, taps by roll or by pad) and
 `conv3d_mm_pallas` (Cin > 256, prepadded or unpadded input). They tile one
-sum differently for the TPU; here one kernel computes it: channel-last
+sum differently for the TPU; here the source computes it: channel-last
 (B, R, R, R, Cin) in float32 or bfloat16, any R, any Cin, weights rounded
 to the input type (as the TPU path casts its kernel), float32 accumulation
 and bias, output in the input type. Weights keep the reference layout
 (Cout, Cin, 3, 3, 3).
 
-The source holds two kernels and `kernel_path` says which a call takes, by
-the grid's type alone: bfloat16 grids the tensor-core kernel ("tc"),
-float32 grids the CUDA-core one ("simt"). Each reads the weights in a layout
-of its own (`pack_weight`, `gemm_weight`); `packed` makes that copy and the
-float32 bias once per weight and keeps it until the parameter changes, so
-sampling packs once a layer and training once a step.
+`kernel_path` says which kernel a call takes, by the grid's type alone:
+bfloat16 grids the warpgroup tensor-core kernel ("wgmma": Hopper's
+`wgmma.mma_async` fed through shared memory by a producer warp, the 27 taps
+shifted views of a staged halo), float32 grids the CUDA-core ones ("simt").
+Each reads the weights in a layout of its own (`pack_weight`,
+`gemm_weight`), padded to the N tile of its kernel (`n_tile`); `packed`
+makes that copy and the float32 bias once per weight and keeps it until the
+parameter changes, so sampling packs once a layer and training once a step.
 
 `conv3d` is differentiable (`_conv3d_bwd`): the cotangents of a plain conv
 whose weights were cast to the grid's dtype, returned in the primal dtypes
@@ -33,9 +35,11 @@ import torch.nn.functional as F
 
 from bdm_tpu_torch.ops.cuda import _lib
 
-CIN_STEP = 16   # the depth of one tensor-core product
+CIN_STEP = 16   # the warpgroup kernel's chunk: the depth of one product
 GEMM_CIN_STEP = 4   # the CUDA-core kernel's piece: 4 channels of one tap
 GEMM_K_STEP = 16    # ... and its ring stage: 4 pieces
+# `bdm_conv3d_path`'s codes
+PATH_CODES = {"simt": 0, "wgmma": 2}
 
 
 def conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -51,12 +55,15 @@ def conv3d_plain(x: torch.Tensor, weight: torch.Tensor,
 def kernel_path(dtype: torch.dtype, cin: int, cout: int, r: int) -> str:
     """Which kernel of `csrc/conv3d.cu` a CUDA grid of this type and shape
     launches (`bdm_conv3d_path` is the same rule in the source)."""
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
-def n_tile(cout: int) -> int:
-    """Output channels a block of either kernel computes
-    (`bdm_conv3d_n_tile`)."""
+def n_tile(dtype: torch.dtype, cout: int) -> int:
+    """Output channels a block of the kernel that serves grids of `dtype`
+    computes (`bdm_conv3d_n_tile`): the warpgroup kernel every channel up to
+    128, the CUDA-core ones 32 or 64."""
+    if dtype == torch.bfloat16:
+        return 32 if cout <= 32 else (64 if cout <= 64 else 128)
     return 32 if cout <= 32 else 64
 
 
@@ -74,20 +81,29 @@ def gemm_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     cin4 = padded(cin, GEMM_CIN_STEP)
     w = weight.detach().to(dtype).permute(2, 3, 4, 1, 0).reshape(27, cin, cout)
     out = w.new_zeros((padded(27 * cin4, GEMM_K_STEP),
-                       padded(cout, n_tile(cout))))
+                       padded(cout, n_tile(dtype, cout))))
     out[:27 * cin4].view(27, cin4, -1)[:, :cin, :cout] = w
     return out
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(Cout, Cin, 3, 3, 3) -> (27, Cin_p, Cout_p) bfloat16, taps in
-    (kd, kh, kw) order, Cin_p a multiple of 16 and Cout_p of the N tile,
-    zeros in the padding: the layout the tensor-core kernel reads."""
+    """(Cout, Cin, 3, 3, 3) -> (Cout_p / NT, Cin_p / 16, 3, 9, 2, NT, 8)
+    bfloat16: N tile, chunk of 16 input channels, kd, (kh, kw), 8-channel
+    half of the chunk, output channel, channel; Cin_p a multiple of 16,
+    Cout_p of the N tile NT, zeros in the padding. One (N tile, chunk, kd)
+    is one contiguous stage of the warpgroup kernel's weight ring: for each
+    of its 9 taps the B operand of one product, core matrices of 8 output
+    channels x 8 input channels (128 bytes), the next 8 output channels 128
+    bytes on, the second half of the chunk NT x 16 bytes on."""
     cout, cin = weight.shape[:2]
+    nt = n_tile(torch.bfloat16, cout)
+    cin_p, cout_p = padded(cin, CIN_STEP), padded(cout, nt)
     w = weight.detach().to(torch.bfloat16).permute(2, 3, 4, 1, 0)
-    out = w.new_zeros((27, padded(cin, CIN_STEP), padded(cout, n_tile(cout))))
-    out[:, :cin, :cout] = w.reshape(27, cin, cout)
-    return out
+    full = w.new_zeros((27, cin_p, cout_p))
+    full[:, :cin, :cout] = w.reshape(27, cin, cout)
+    # (kd, t9, chunk, half, e, ntile, n) -> (ntile, chunk, kd, t9, half, n, e)
+    full = full.view(3, 9, cin_p // CIN_STEP, 2, 8, cout_p // nt, nt)
+    return full.permute(5, 2, 0, 1, 3, 6, 4).contiguous()
 
 
 def pack_bias(bias: torch.Tensor, cout_p: int) -> torch.Tensor:
@@ -125,9 +141,9 @@ def packed(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
     _lib.ledger["conv3d", "packs"] += 1
     cout, cin = weight.shape[:2]
     # one copy serves every grid size: the rule reads no R
-    if kernel_path(dtype, cin, cout, 0) == "tc":
+    if kernel_path(dtype, cin, cout, 0) == "wgmma":
         w = pack_weight(weight)
-        bf = pack_bias(bias, w.shape[2])
+        bf = pack_bias(bias, w.shape[0] * w.shape[5])
     else:
         w = gemm_weight(weight, dtype)
         bf = pack_bias(bias, w.shape[1])

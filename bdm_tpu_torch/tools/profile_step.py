@@ -41,7 +41,7 @@ from bdm_tpu_torch.train import (create_train_state, make_optimizer,
 # sources name their kernels after themselves, so the prefixes "scatter_sum"
 # and "ball_query" gather every kernel of scatter_sum.cu (count, scan,
 # place, run) and of ball_query.cu
-KERNELS = ("conv3d_tc_kernel", "conv3d_simt_kernel",
+KERNELS = ("conv3d_wgmma_kernel", "conv3d_simt_kernel",
            "conv3d_simt_halo_kernel", "attention_tc_kernel",
            "attention_simt_kernel", "fps_kernel",
            "scatter_mean_kernel", "scatter_sum", "ball_query",

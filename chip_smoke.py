@@ -247,6 +247,19 @@ def bound(tensors, flops: float, kind: str) -> dict:
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+def conv_bound_ms(b, cin, cout, r):
+    """The least time of one bf16 conv launch by `benchmark/counting.py`'s
+    rule: x, the weights, the float32 bias and the output once over the
+    memory rate, or 2 B R^3 27 Cin Cout operations over the bf16 peak."""
+    from bdm_tpu_torch.bench import H100, PEAK_FLOPS
+    e, r3 = 2, r ** 3
+    nbytes = (b * r3 * cin * e + cout * cin * 27 * e + cout * 4
+              + b * r3 * cout * e)
+    flops = 2 * 27 * cin * cout * r3 * b
+    return max(nbytes / HBM_BYTES_PER_S,
+               flops / PEAK_FLOPS[H100]["bf16"]) * 1e3
+
+
 # Times of the CUDA-core kernels that served bfloat16 before the tensor-core
 # ones, ms at B=8 on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6
 # keeps them in rows 5, 11, 12 and 12u).
@@ -304,6 +317,8 @@ CONVS = [(390, 32, 32), (3, 32, 32), (32, 32, 32), (128, 64, 16),
          (3, 64, 32), (128, 128, 32), (192, 128, 16), (256, 256, 16),
          (320, 256, 8), (512, 512, 8), (64, 32, 32)] + [
              (c, 32, 32) for c in STAGE0_CINS]
+# ... the ten of them a PC2 and a PVD forward run (the benchmark cell's)
+FORWARD_CONVS = CONVS[:10]
 # ... and attention at (S, C): C 64 at the published widths, C 128 (the
 # kernel's widest) in PVD at twice the width
 ATTNS = [(4096, 64), (4096, 128)]
@@ -366,7 +381,8 @@ DEVOX_EDGES = [(2, 37, 8, 5), (3, 1000, 24, 9), (2, 300, 16, 4),
                (1, 4095, 64, 32), (2, 77, 40, 7)]
 
 # The shapes the paths gave the kernels whose shapes follow the model's
-# widths: conv3d (Cin, Cout, R), attention (S, C), scatter_mean (C, R, N),
+# widths: conv3d (Cin, Cout, R, the planes of its tile: `conv_key`),
+# attention (S, C), scatter_mean (C, R, N),
 # groupnorm (S, C, dtype), devox (N, C, R, dtype).
 SEEN = {"conv3d": set(), "attention": set(), "scatter_mean": set(),
         "groupnorm": set(), "devox": set()}
@@ -389,8 +405,7 @@ def record_shapes():
         "groupnorm": (groupnorm, lambda x, *_: (
             x.numel() // (x.shape[0] * x.shape[-1]), x.shape[-1],
             _dtype_name(x.dtype))),
-        "conv3d": (conv3d, lambda x, w, b: (x.shape[-1], w.shape[0],
-                                            x.shape[1])),
+        "conv3d": (conv3d, lambda x, w, b: conv_key(x, w)),
         "attention": (attention, lambda q, k, v: tuple(q.shape[1:])),
         "scatter_mean": (voxelize, lambda f, order, ids_sorted, lo, r, *_:
                          (f.shape[-1], r, f.shape[1])),
@@ -400,6 +415,18 @@ def record_shapes():
             SEEN[_name].add(_key(*args))
             return _inner(*args)
         mod._forward = noting
+
+
+def conv_key(x, w):
+    """(Cin, Cout, R, planes) of a conv: the z-planes a warpgroup of its
+    tile takes follow the batch (`bdm_conv3d_planes`; 0 at float32), so a
+    shape is held at each depth a path ran it at."""
+    from bdm_tpu_torch.ops.cuda import _lib
+    b, r, cin = x.shape[0], x.shape[1], x.shape[-1]
+    planes = _lib.library().bdm_conv3d_planes(
+        _lib.DTYPE_CODES[x.dtype], b, r, cin, w.shape[0],
+        int(x.data_ptr() % 16 == 0))
+    return cin, w.shape[0], r, planes
 
 
 def check_shapes_covered(checked):
@@ -868,21 +895,28 @@ def check_kernels(dev):
     ragged = sorted({(cin, 32, 9) for cin, _, _ in convs}) + [
         (64, 130, 9), (16, 7, 5)]
     err = 0.0
+    conv_checked = set()
     for cin, cout, r in convs + ragged:
         wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
         bias = randn(cout, scale=0.1)
-        if lib.bdm_conv3d_n_tile(cout) != conv3d.n_tile(cout):
-            fail(f"conv3d: the source's N tile for Cout={cout} is not "
-                 f"the wrapper's")
-        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-            tc = lib.bdm_conv3d_path(_lib.DTYPE_CODES[dt], cin, cout, r) == 1
-            if tc != (conv3d.kernel_path(dt, cin, cout, r) == "tc"):
+        # bf16 also at B 1, where most shapes take the one-plane tile
+        for dt, tol, bb in ((torch.float32, 1e-4, b),
+                            (torch.bfloat16, 1e-2, 1),
+                            (torch.bfloat16, 1e-2, b)):
+            code = _lib.DTYPE_CODES[dt]
+            if lib.bdm_conv3d_n_tile(code, cout) != conv3d.n_tile(dt, cout):
+                fail(f"conv3d: the source's N tile for Cout={cout} {dt} is "
+                     f"not the wrapper's")
+            path = lib.bdm_conv3d_path(code, cin, cout, r)
+            if path != conv3d.PATH_CODES[conv3d.kernel_path(dt, cin, cout,
+                                                            r)]:
                 fail(f"conv3d {cin}->{cout} R={r} {dt}: the source's "
                      f"dispatch is not `kernel_path`")
-            x = randn(b, r, r, r, cin, dtype=dt)
+            x = randn(bb, r, r, r, cin, dtype=dt)
             err = max(err, rel_err(conv3d.conv3d(x, wt, bias),
                                    conv3d.conv3d_plain(x, wt, bias), tol,
-                                   f"conv3d {cin}->{cout} R={r} {dt}"))
+                                   f"conv3d {cin}->{cout} R={r} B={bb} {dt}"))
+            conv_checked.add(conv_key(x, wt))
 
     def conv_times(cin, cout, r, dt=torch.bfloat16):
         """Kernel, plain and one-call (cuDNN, channels-last, in the grid's
@@ -912,6 +946,20 @@ def check_kernels(dev):
             **bound([x, wt, bias, y], 2 * 27 * cin * cout * r ** 3 * b,
                     "bf16" if bf16 else "f32"))
 
+    def conv_by_shape(cin, cout, r, bb):
+        """One bf16 conv at batch `bb`, held against the plain version: 10
+        launches back to back behind a matmul, against
+        `benchmark/counting.py`'s bound."""
+        x = randn(bb, r, r, r, cin, dtype=torch.bfloat16)
+        wt = randn(cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+        bias = randn(cout, scale=0.1)
+        rel_err(conv3d.conv3d(x, wt, bias), conv3d.conv3d_plain(x, wt, bias),
+                1e-2, f"conv3d {cin}->{cout} R={r} B={bb} bfloat16")
+        conv_checked.add(conv_key(x, wt))
+        ms = timed_ms(lambda: conv3d.conv3d(x, wt, bias), inner=10)
+        bound = conv_bound_ms(bb, cin, cout, r)
+        return dict(ms=ms, bound_ms=bound, share=bound / ms)
+
     # timed at PC2's wide stage-0 conv (the TPU's conv3d_mm) and at the
     # largest narrow one (conv3d_ms): the last FP stage's 64 -> 64, R 32
     # and at the contracts of the TPU's other convs: a float32 grid, an
@@ -930,7 +978,10 @@ def check_kernels(dev):
         bf16_512_512_r8=conv_times(512, 512, 8),
         # stage 0 under the options (bf16): mask, mask + distance
         # transform, global ViT features, PVCNN2++
-        stage0_by_cin={str(c): conv_times(c, 32, 32) for c in STAGE0_CINS})
+        stage0_by_cin={str(c): conv_times(c, 32, 32) for c in STAGE0_CINS},
+        # every conv of the list at B 8 and at the benchmark's B 64, bf16
+        bf16_by_shape={f"{cin}_{cout}_r{r}_b{bb}": conv_by_shape(
+            cin, cout, r, bb) for cin, cout, r in CONVS for bb in (8, 64)})
 
     attns = ATTNS
 
@@ -1160,7 +1211,7 @@ def check_kernels(dev):
         print(f"scatter_sum {key}: {r['ms']:.4f} ms back to back, one "
               f"PyTorch call (zero_().index_add_) {r['library_ms']:.4f} ms, "
               f"{r['library_ms'] / r['ms']:.2f}x; bound {r['bound_ms']:.5f}")
-    return res, {"conv3d": set(convs), "attention": set(attns),
+    return res, {"conv3d": conv_checked, "attention": set(attns),
                  "scatter_mean": set(SITES), "groupnorm": gn_checked,
                  "devox": devox_checked}
 
@@ -1913,7 +1964,7 @@ def check_path(name, counts, paths, unused=(), float32=False,
     process (`here`; not a spawned rank's counts) notes its graph captures
     and replays in GRAPHS, and a sampling path (`samples`) fails unless
     its PVCNN2 forwards replayed. -> the launches, those two kernels' also
-    by kernel ("conv3d_tc", ...)."""
+    by kernel ("conv3d_wgmma", ...)."""
     from bdm_tpu_torch.bench import check_launches
     from bdm_tpu_torch.models import graphs
     if here:
@@ -2122,7 +2173,7 @@ def wide_and_fusion_training(merge, dev):
         TrainNoise(SEED, dev), 2)
     print("PVD x2 shapes no earlier path had:", json.dumps(
         {k: sorted(v - before[k]) for k, v in SEEN.items()}))
-    if (512, 512, 8) not in SEEN["conv3d"] - before["conv3d"]:
+    if (512, 512, 8) not in {k[:3] for k in SEEN["conv3d"] - before["conv3d"]}:
         fail("PVD x2 never ran its 512 -> 512 conv at R=8")
     if (4096, 128) not in SEEN["attention"]:
         fail("PVD x2 never ran its attention at C=128")

@@ -122,10 +122,15 @@ def test_forward_counter_reads_the_schedule(sampler, want):
 
 def test_check_launches_raises_on_a_breach():
     counts = {"fps": (3, 0), "conv3d": (4, 0), "attention": (0, 0)}
-    paths = {"conv3d": {"tc": 4, "simt": 0},
+    paths = {"conv3d": {"wgmma": 4, "simt": 0},
              "attention": {"tc": 0, "simt": 0}}
     out = bench.check_launches(counts, paths, {"fps", "conv3d"}, False)
-    assert out["conv3d_tc"] == 4 and out["fps"] == 3
+    assert out["conv3d_wgmma"] == 4 and out["fps"] == 3
+    # a bf16 conv on the CUDA cores is the wrong kernel too
+    with pytest.raises(AssertionError, match="wrong kernel"):
+        bench.check_launches(counts, dict(paths, conv3d={"wgmma": 3,
+                                                         "simt": 1}),
+                             {"fps", "conv3d"}, False)
     with pytest.raises(AssertionError, match="attention"):
         bench.check_launches(counts, paths, {"fps", "conv3d", "attention"},
                              False)
@@ -141,7 +146,7 @@ def test_check_launches_refuses_groupnorm_in_its_plain_form():
     norms ran the plain form on the card, or never launched the kernel,
     breaks the check like any other kernel."""
     counts = {"conv3d": (4, 0), "groupnorm": (126, 0)}
-    paths = {"conv3d": {"tc": 4, "simt": 0}}
+    paths = {"conv3d": {"wgmma": 4, "simt": 0}}
     out = bench.check_launches(counts, paths, {"conv3d", "groupnorm"}, False)
     assert out["groupnorm"] == 126
     with pytest.raises(AssertionError, match="plain version of groupnorm"):
@@ -157,7 +162,7 @@ def test_check_launches_refuses_the_scalar_blend():
     one-channel kernel has the wrong kernel; its vector launches count by
     kernel."""
     counts = {"interp_mm": (2, 0), "conv3d": (1, 0)}
-    paths = {"conv3d": {"tc": 1, "simt": 0},
+    paths = {"conv3d": {"wgmma": 1, "simt": 0},
              "interp_mm": {"vec": 2, "scalar": 0}}
     out = bench.check_launches(counts, paths, {"interp_mm", "conv3d"}, False)
     assert out["interp_mm_vec"] == 2 and out["interp_mm_scalar"] == 0

@@ -21,9 +21,13 @@ surrounds the CUDA code and can be said in PyTorch.
     port's plain version and the Pallas kernel in interpret mode: float32
     1e-5 of the largest entry (the same sums in another order), bfloat16
     1e-2 (one bfloat16 rounding of sums that differ in their last bits);
-  * the packed weight layout of the conv kernel: packed weights times the
-    27 shifted views of a zero-padded grid equal the plain conv, and the
-    padding is zero;
+  * the packed weight layout of the bf16 conv kernel (one ring stage a
+    (N tile, chunk, kd)): packed weights times the 27 shifted views of a
+    zero-padded grid equal the plain conv, and the padding is zero; its
+    N tile by Cout; and the warpgroup kernel's tiles, halo and weight
+    stages and descriptor arithmetic (A rows 160 bytes a group of 8, the
+    chunk's halves one halo apart; B rows 128 bytes a group of 8, the
+    halves NT x 16 bytes apart), bf16 1e-2 against the plain conv;
   * the cache of packed weights: refreshed after an in-place update and
     after `load_state_dict`, kept otherwise;
   * `kernel_path` at every shape `chip_smoke.py` holds on the card;
@@ -250,7 +254,7 @@ def conv_simt(x, weight, bias):
     times the packed weights stage by stage (16 deep), bias in float32."""
     b, r, cin = x.shape[0], x.shape[1], x.shape[-1]
     cout = weight.shape[0]
-    bn = k_conv.n_tile(cout)
+    bn = k_conv.n_tile(torch.float32, cout)
     packed = k_conv.gemm_weight(weight, torch.float32)
     kp, cout_p = packed.shape
     cin4 = k_conv.padded(cin, k_conv.GEMM_CIN_STEP)
@@ -293,7 +297,8 @@ def conv_simt_halo(x, weight, bias):
     packed weights."""
     b, r, cin = x.shape[0], x.shape[1], x.shape[-1]
     cout = weight.shape[0]
-    tz, threads = (2, 128) if k_conv.n_tile(cout) == 32 else (4, 256)
+    tz, threads = ((2, 128) if k_conv.n_tile(torch.float32, cout) == 32
+                   else (4, 256))
     assert r % 8 == 0 and r % tz == 0
     packed = k_conv.gemm_weight(weight, torch.float32)
     cout_p = packed.shape[1]
@@ -361,8 +366,16 @@ def _conv_by_taps(x, packed, bias_p, cout):
     return (acc + bias_p)[..., :cout].to(x.dtype)
 
 
+def unpack_weight(packed):
+    """`conv3d.pack_weight`'s layout -> (27, Cin_p, Cout_p), taps in
+    (kd, kh, kw) order: what the warpgroup kernel multiplies."""
+    ntiles, chunks, _, _, _, nt, _ = packed.shape
+    return packed.permute(2, 3, 1, 4, 6, 0, 5).reshape(
+        27, chunks * k_conv.CIN_STEP, ntiles * nt)
+
+
 @pytest.mark.parametrize("cin,cout,r", [(3, 8, 5), (6, 32, 5), (32, 40, 5),
-                                        (20, 70, 4)])
+                                        (20, 70, 4), (8, 200, 3)])
 def test_packed_weights(cin, cout, r):
     rng = np.random.default_rng(cin)
     x = torch.from_numpy(rng.standard_normal((2, r, r, r, cin))
@@ -371,15 +384,175 @@ def test_packed_weights(cin, cout, r):
                          .astype(np.float32)) * (27 * cin) ** -0.5
     bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
     packed = k_conv.pack_weight(w)
-    cin_p, cout_p = packed.shape[1:]
+    nt = k_conv.n_tile(torch.bfloat16, cout)
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    # (N tile, chunk, kd, (kh, kw), 8-channel half, n, 8): one ring stage
+    # of 9 x 16 x NT elements for each (N tile, chunk, kd)
+    assert packed.shape[2:] == (3, 9, 2, nt, 8)
+    assert packed[0, 0, 0].numel() * 2 == 9 * 16 * nt * 2
+    taps = unpack_weight(packed)
+    cin_p, cout_p = taps.shape[1:]
+    assert taps.shape[0] == 27 and packed.shape[:2] == (cout_p // nt,
+                                                        cin_p // 16)
     assert cin_p % 16 == 0 and 0 <= cin_p - cin < 16
-    assert cout_p % k_conv.n_tile(cout) == 0 and cout_p - cout < 64
-    assert not packed[:, cin:].any() and not packed[:, :, cout:].any()
+    assert cout_p % nt == 0 and cout_p - cout < nt
+    assert not taps[:, cin:].any() and not taps[:, :, cout:].any()
+    assert torch.equal(taps[:, :cin, :cout], w.to(torch.bfloat16).permute(
+        2, 3, 4, 1, 0).reshape(27, cin, cout))
     bias_p = k_conv.pack_bias(bias, cout_p)
     assert bias_p.dtype == torch.float32 and not bias_p[cout:].any()
-    got = _conv_by_taps(x, packed, bias_p, cout)
+    got = _conv_by_taps(x, taps, bias_p, cout)
     assert _rel(got, k_conv.conv3d_plain(x, w, bias)) < TOL[torch.bfloat16]
+
+
+def conv_wgmma(x, weight, bias, planes):
+    """`conv3d_wgmma_kernel` of csrc/conv3d.cu in PyTorch, on bf16 inputs.
+    A block: 2 consumer warpgroups of `planes` z-planes of 8 x 8 output
+    voxels (TZ = 2 planes) times an N tile of `n_tile`. Its shared memory
+    is emulated in 16-byte units (8 channels): a chunk's halo stage
+    [half][hz][hy][hx] of (TZ + 2) x 10 x 10 voxels, zeros outside the grid
+    and past Cin; a weight stage, one (N tile, chunk, kd) of the packed
+    weights read as is. Each product reads its operands through the
+    descriptors' arithmetic: A row m of plane p at tap (kd, kh, kw) is
+    unit start + (m // 8) SBO + m % 8 (+ LBO for the chunk's second
+    half), start = the plane's voxel (p + kd, kh, kw), SBO one halo row
+    (10 units, 160 bytes), LBO one half (the halo's voxels); B row n of tap
+    t9 is unit 2 NT t9 + (n // 8) 8 + n % 8 (+ NT), SBO 128 bytes. Float32
+    sums, bias in float32, one rounding."""
+    b, r, cin = x.shape[0], x.shape[1], x.shape[-1]
+    cout = weight.shape[0]
+    nt = k_conv.n_tile(torch.bfloat16, cout)
+    packed = k_conv.pack_weight(weight)
+    ntiles, chunks = packed.shape[:2]
+    tz = 2 * planes
+    hv = (tz + 2) * 100
+    bias_p = k_conv.pack_bias(bias, ntiles * nt)
+    grid = F.pad(x.float(), (0, chunks * 16 - cin, 1, 9, 1, 9, 1, tz + 1))
+    out = torch.zeros(b, r, r, r, cout)
+    m = torch.arange(64)
+    n = torch.arange(nt)
+    for z0 in range(0, r, tz):
+        for y0 in range(0, r, 8):
+            for x0 in range(0, r, 8):
+                halo = grid[:, z0:z0 + tz + 2, y0:y0 + 10, x0:x0 + 10]
+                for ti in range(ntiles):
+                    acc = torch.zeros(b, tz, 64, nt)
+                    for c in range(chunks):
+                        # [half][voxel] -> 16-byte units of 8 channels
+                        units = halo[..., 16 * c:16 * c + 16].reshape(
+                            b, hv, 2, 8).transpose(1, 2).reshape(b, 2 * hv, 8)
+                        for kd in range(3):
+                            stage = packed[ti, c, kd].float().reshape(-1, 8)
+                            for t9 in range(9):
+                                kh, kw = divmod(t9, 3)
+                                rows_b = 2 * nt * t9 + (n // 8) * 8 + n % 8
+                                bt = torch.cat([stage[rows_b],
+                                                stage[rows_b + nt]], 1)
+                                for p in range(tz):
+                                    start = ((p + kd) * 10 + kh) * 10 + kw
+                                    rows_a = start + (m // 8) * 10 + m % 8
+                                    a = torch.cat([units[:, rows_a],
+                                                   units[:, rows_a + hv]], 2)
+                                    acc[:, p] += a @ bt.T
+                    y = (acc + bias_p[ti * nt:(ti + 1) * nt]).reshape(
+                        b, tz, 8, 8, nt)
+                    zs, ys, xs = (min(tz, r - z0), min(8, r - y0),
+                                  min(8, r - x0))
+                    cols = min(nt, cout - ti * nt)
+                    out[:, z0:z0 + zs, y0:y0 + ys, x0:x0 + xs,
+                        ti * nt:ti * nt + cols] = y[:, :zs, :ys, :xs, :cols]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("cin,cout,r,planes", [
+    (3, 32, 8, 1), (6, 8, 5, 1), (40, 64, 8, 2), (16, 7, 9, 1),
+    (20, 130, 8, 1), (24, 32, 9, 4), (1, 1, 3, 1), (32, 200, 4, 2)],
+    ids=lambda v: str(v))
+def test_conv_wgmma_addressing(cin, cout, r, planes):
+    """The warpgroup kernel's tiles, rings and descriptor arithmetic on the
+    packed weights give the plain conv: ragged grids, Cin odd, even and a
+    multiple of 8 and 16, Cout below, at and past an N tile, every
+    planes-a-warpgroup the source instantiates (1, 2, 4)."""
+    rng = np.random.default_rng(cin * 7 + cout)
+    x = torch.from_numpy(rng.standard_normal((2, r, r, r, cin))
+                         .astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3, 3))
+                         .astype(np.float32)) * (27 * cin) ** -0.5
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    got = conv_wgmma(x, w, bias, planes)
+    assert got.shape == (2, r, r, r, cout)
+    assert _rel(got, k_conv.conv3d_plain(x, w, bias)) < TOL[torch.bfloat16]
+
+
+def stage_by_vectors(raw, start, end, cin, voxel, c0, read):
+    """`wg_stage_halo` of csrc/conv3d.cu for one voxel of a grid whose rows
+    are not 16-byte aligned: `raw` the bytes of the allocation, the grid
+    from byte `start` to `end`. The chunk's 32 bytes (channels c0 .. c0 +
+    15) from the three aligned 16-byte words around them, a word loaded
+    only if it starts before `end` (its start noted in `read`); a shift by
+    whole words (2, then 1), then by half a word; zeros past Cin. -> the 16
+    channels' bits."""
+    a = start + 2 * (voxel * cin + c0)
+    word0, shift = a & ~15, a & 15
+    v = []
+    for q in range(3):
+        w = word0 + 16 * q
+        if w < end:
+            read.append(w)
+            v += list(np.frombuffer(raw[w:w + 16].tobytes(), np.uint32))
+        else:
+            v += [0] * 4
+    o = shift >> 2
+    if o & 2:
+        v = v[2:] + [0, 0]
+    if o & 1:
+        v = v[1:] + [0]
+    out = []
+    for i in range(8):
+        word = int(v[i])
+        if shift & 2:
+            word = ((int(v[i + 1]) << 32 | word) >> 16) & 0xFFFFFFFF
+        for half in range(2):
+            ch = c0 + 2 * i + half
+            out.append(0 if ch >= cin else (word >> (16 * half)) & 0xFFFF)
+    return out
+
+
+@pytest.mark.parametrize("cin", [390, 391, 3, 67, 6, 774])
+@pytest.mark.parametrize("lead", [0, 1, 3])
+def test_conv_halo_by_vectors(cin, lead):
+    """The warpgroup kernel's halo without TMA: for every voxel and chunk
+    of a grid that starts `lead` elements into its allocation (a batch
+    slice), the shifted aligned words give the voxel's channels, zeros past
+    Cin; every word read starts inside the grid's aligned span (so in its
+    pages)."""
+    rng = np.random.default_rng(cin + lead)
+    voxels = 5
+    grid = rng.integers(1, 2 ** 15, size=voxels * cin).astype(np.uint16)
+    # the allocation: `lead` elements, the grid, then bytes past it
+    raw = np.concatenate([
+        rng.integers(1, 2 ** 15, size=lead).astype(np.uint16), grid,
+        np.full(32, 0xFFFF, np.uint16)]).view(np.uint8)
+    start, end = 2 * lead, 2 * (lead + voxels * cin)
+    read = []
+    for voxel in range(voxels):
+        for c0 in range(0, cin, 16):
+            got = stage_by_vectors(raw, start, end, cin, voxel, c0, read)
+            want = [int(grid[voxel * cin + c]) if c < cin else 0
+                    for c in range(c0, c0 + 16)]
+            assert got == want, (voxel, c0)
+    assert min(read) >= start & ~15 and max(read) < end
+
+
+@pytest.mark.parametrize("cout,bf16,f32", [(1, 32, 32), (32, 32, 32),
+                                           (33, 64, 64), (64, 64, 64),
+                                           (65, 128, 64), (128, 128, 64),
+                                           (130, 128, 64), (256, 128, 64)])
+def test_conv_n_tile(cout, bf16, f32):
+    """The warpgroup kernel computes every channel of Cout <= 128 in one
+    block (its halo staged once); the CUDA-core kernels 32 or 64."""
+    assert k_conv.n_tile(torch.bfloat16, cout) == bf16
+    assert k_conv.n_tile(torch.float32, cout) == f32
 
 
 @pytest.mark.parametrize("how", ["add_", "load_state_dict"])
@@ -440,10 +613,16 @@ def test_packed_cache_through_the_autograd_function():
     assert _packs() == before + 2
 
 
-@pytest.mark.parametrize("cin,cout,r", chip_smoke.CONVS)
+@pytest.mark.parametrize("cin,cout,r", chip_smoke.CONVS + [
+    (3, 32, 9), (6, 8, 5), (16, 7, 5), (1, 1, 1), (64, 130, 9)])
 def test_conv_kernel_path(cin, cout, r):
-    assert k_conv.kernel_path(torch.bfloat16, cin, cout, r) == "tc"
+    """Every bf16 shape class (Cin odd, even and a multiple of 8; Cout
+    ragged; R odd) takes the warpgroup kernel, every float32 one the
+    CUDA-core kernels; the codes are the source's."""
+    assert k_conv.kernel_path(torch.bfloat16, cin, cout, r) == "wgmma"
     assert k_conv.kernel_path(torch.float32, cin, cout, r) == "simt"
+    assert k_conv.PATH_CODES == {"simt": 0, "wgmma": 2}
+    assert set(k_conv.PATH_CODES) == set(kernels.PATHS["conv3d"])
 
 
 @pytest.mark.parametrize("s,c", chip_smoke.ATTNS + [(729, 16), (64, 8)])

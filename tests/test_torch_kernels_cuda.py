@@ -24,10 +24,13 @@ random, lattice and duplicate clouds, at N < U and on the lattice at r = 1.0
 at every FP level on random, lattice and duplicate clouds and with fewer
 centres than three and than a query's lanes; gradients 1e-4 (float32)
 against the plain versions under PyTorch's autograd. bfloat16 attention (C a
-multiple of 8) and every bfloat16 conv run on the tensor cores, float32 on
-the CUDA cores: both are held here, at ragged and narrow shapes too, and the
-counters say which kernel a call took. FPS is held on tie-heavy clouds (the
-integer lattice, exact duplicates) at every PVCNN2 level and at N that is no
+multiple of 8) and every bfloat16 conv run on the tensor cores (the conv on
+the warpgroup kernel, "wgmma"), float32 on the CUDA cores: both are held
+here, at ragged and narrow shapes too, and the counters say which kernel a
+call took; the bf16 conv also at every path shape at B 8 and at a forward's
+ten at B 64, and replayed from a captured CUDA graph bit for bit. FPS is
+held on tie-heavy clouds (the integer lattice, exact duplicates) at every
+PVCNN2 level and at N that is no
 multiple of the block; the scatter-mean with every point in one voxel and
 with every point in a voxel of its own, at row widths that take each vector
 width, bit for bit against the plain version on the CPU (one rounding of
@@ -308,13 +311,14 @@ def test_conv3d_ragged_and_narrow(dev, dtype, cin, cout, r):
     out = k_conv.conv3d(x, wt, bias)
     assert out.shape == (2, r, r, r, cout) and torch.isfinite(out).all()
     assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < tol
-    tc = dtype == torch.bfloat16
-    assert kernels.path_counts()["conv3d"] == {"tc": int(tc),
-                                               "simt": int(not tc)}
+    wg = dtype == torch.bfloat16
+    assert kernels.path_counts()["conv3d"] == {"wgmma": int(wg),
+                                               "simt": int(not wg)}
     lib = _lib.library()
-    assert bool(lib.bdm_conv3d_path(_lib.DTYPE_CODES[dtype], cin, cout,
-                                    r)) == tc
-    assert lib.bdm_conv3d_n_tile(cout) == k_conv.n_tile(cout)
+    code = _lib.DTYPE_CODES[dtype]
+    assert lib.bdm_conv3d_path(code, cin, cout, r) == k_conv.PATH_CODES[
+        "wgmma" if wg else "simt"]
+    assert lib.bdm_conv3d_n_tile(code, cout) == k_conv.n_tile(dtype, cout)
 
 
 def test_bf16_calls_take_the_tensor_cores(dev):
@@ -329,7 +333,7 @@ def test_bf16_calls_take_the_tensor_cores(dev):
     for _ in range(3):
         k_conv.conv3d(x, wt, bias)
     assert kernels.path_counts() == {
-        "conv3d": {"tc": 3, "simt": 0}, "attention": {"tc": 1, "simt": 0},
+        "conv3d": {"wgmma": 3, "simt": 0}, "attention": {"tc": 1, "simt": 0},
         "interp_mm": {"vec": 0, "scalar": 0}}
     assert kernels.counts()["conv3d"] == (3, 0)
     assert kernels.tally()["conv3d", "packs"] == 1
@@ -500,8 +504,72 @@ def test_float32_conv3d_at_path_shapes(dev, cin, cout, r):
     bias = _cloud(dev, cout, seed=62) * 0.1
     kernels.reset_counts()
     out = k_conv.conv3d(x, wt, bias)
-    assert kernels.path_counts()["conv3d"] == {"tc": 0, "simt": 1}
+    assert kernels.path_counts()["conv3d"] == {"wgmma": 0, "simt": 1}
     assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-4
+
+
+@pytest.mark.parametrize("b,cin,cout,r", [
+    (8, *s) for s in chip_smoke.CONVS] + [
+    (64, *s) for s in chip_smoke.FORWARD_CONVS], ids=lambda v: str(v))
+def test_bf16_conv3d_at_path_shapes(dev, b, cin, cout, r):
+    """The warpgroup kernel at every bf16 conv of the paths at B 8, and at
+    the ten of a PC2 and a PVD forward at the benchmark's B 64 (every tile
+    depth and halo route it takes there)."""
+    x = _cloud(dev, b, r, r, r, cin, seed=63).to(torch.bfloat16)
+    wt = _cloud(dev, cout, cin, 3, 3, 3, seed=64) * (27 * cin) ** -0.5
+    bias = _cloud(dev, cout, seed=65) * 0.1
+    kernels.reset_counts()
+    out = k_conv.conv3d(x, wt, bias)
+    assert kernels.path_counts()["conv3d"] == {"wgmma": 1, "simt": 0}
+    assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-2
+
+
+@pytest.mark.parametrize("cin,cout,r", [(64, 64, 16), (390, 32, 9),
+                                        (3, 32, 8)], ids=lambda v: str(v))
+def test_bf16_conv3d_replays_bit_equal(dev, cin, cout, r):
+    """A conv captured in a CUDA graph (its tensor map a kernel parameter,
+    kept by the capture) replays on new inputs bit for bit as the eager
+    call: the TMA halo and the staging warps' (Cin even and odd)."""
+    x = _cloud(dev, 2, r, r, r, cin, seed=66).to(torch.bfloat16)
+    wt = _cloud(dev, cout, cin, 3, 3, 3, seed=67) * (27 * cin) ** -0.5
+    bias = _cloud(dev, cout, seed=68) * 0.1
+    k_conv.conv3d(x, wt, bias)         # packs the weights outside the graph
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_conv.conv3d(x, wt, bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k_conv.conv3d(x, wt, bias)
+    for seed in (69, 70):
+        x.copy_(_cloud(dev, 2, r, r, r, cin, seed=seed).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k_conv.conv3d(x, wt, bias))
+        assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-2
+
+
+@pytest.mark.parametrize("cin,lead", [(64, 1), (64, 4), (8, 3)],
+                         ids=lambda v: str(v))
+def test_bf16_conv3d_misaligned_x(dev, cin, lead):
+    """A grid that starts `lead` elements into its storage, Cin a multiple
+    of 8: no TMA map can take it, so the staging warps read the aligned
+    16-byte words around its rows, the first one before the grid."""
+    b, r, cout = 2, 9, 32
+    x0 = _cloud(dev, b, r, r, r, cin, seed=71).to(torch.bfloat16)
+    buf = torch.empty(lead + x0.numel(), dtype=torch.bfloat16, device=dev)
+    x = buf[lead:].view(b, r, r, r, cin)
+    x.copy_(x0)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    wt = _cloud(dev, cout, cin, 3, 3, 3, seed=72) * (27 * cin) ** -0.5
+    bias = _cloud(dev, cout, seed=73) * 0.1
+    kernels.reset_counts()
+    out = k_conv.conv3d(x, wt, bias)
+    assert kernels.path_counts()["conv3d"] == {"wgmma": 1, "simt": 0}
+    assert _rel(out, k_conv.conv3d_plain(x, wt, bias)) < 1e-2
+    # the same products in the same order as the TMA route's
+    assert torch.equal(out, k_conv.conv3d(x0, wt, bias))
 
 
 @pytest.mark.parametrize("n,m", chip_smoke.FPS_LARGE, ids=lambda v: str(v))
