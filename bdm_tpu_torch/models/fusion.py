@@ -13,6 +13,9 @@ As in `bdm_tpu` (and unlike the reference, whose indexing there is out of
 bounds), the PVD tower gets the full-resolution timestep embedding and the
 decoder the one the PC2 tower returns.
 
+The forward replays a captured CUDA graph under `models.graphs`'s rule, as
+PVCNN2's does; the mode is part of the graph's key.
+
 State-dict keys are the reference fusion checkpoint's: `embedf`,
 `pc2_model_sa_layers`, `pc2_model_global_att`, `pvd_model_sa_layers`,
 `pvd_model_global_att`, `fusion_decoder_fp_layers`, `classifier`,
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from bdm_tpu_torch.models.graphs import Graphed
 from bdm_tpu_torch.models.layers import (Conv1x1, get_timestep_embedding,
                                          timestep_mlp)
 from bdm_tpu_torch.models.pvcnn import (PVCNN_FP_BLOCKS, PVCNN_SA_BLOCKS,
@@ -60,7 +64,7 @@ class ZeroConvProj(nn.Sequential):
         return super().forward(x.float())
 
 
-class PVCNNFuse(nn.Module):
+class PVCNNFuse(Graphed):
     """forward(recon input (B, N, 3 + S), prior cloud (B, N, 3), t (B,),
     mode) -> (B, N, out_channels) float32. Leaves its constructor in
     `eval()` mode."""
@@ -111,24 +115,31 @@ class PVCNNFuse(nn.Module):
     def forward(self, recon_inputs_with_cond: torch.Tensor,
                 input_from_prior: torch.Tensor, t: torch.Tensor,
                 mode: str = "fusion_nstep") -> torch.Tensor:
+        """Replays a captured CUDA graph of the mode where `models.graphs`'s
+        rule allows it (on the card, autograd off, `eval()`, spans off, no
+        hook inside), else runs eagerly."""
         if mode not in MODES:
             raise ValueError(f"PVCNNFuse: mode {mode!r} not in {MODES}")
         with span("network"):
-            temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
-            x = recon_inputs_with_cond
-            coords_pc2 = x[..., :3].float()
-            f_pc2, cc_pc2, temb_pc2, coords_list, pc2_skips = \
-                self.pc2_encoder(x, coords_pc2, temb)
-            pc2_skips[0] = x[..., 3:]
+            return self.graphs(self, lambda *a: self._forward(*a, mode),
+                               recon_inputs_with_cond, input_from_prior, t,
+                               key=mode)
 
+    def _forward(self, x, input_from_prior, t, mode) -> torch.Tensor:
+        temb = self.embedf(get_timestep_embedding(self.embed_dim, t))
+        coords_pc2 = x[..., :3].float()
+        f_pc2, cc_pc2, temb_pc2, coords_list, pc2_skips = \
+            self.pc2_encoder(x, coords_pc2, temb)
+        pc2_skips[0] = x[..., 3:]
+        with span("fusion.pvd_tower"):
             coords_pvd = (input_from_prior[..., :3].float()
                           if mode == "fusion_nstep" else coords_pc2)
             f_pvd, _, _, _, pvd_skips = self.pvd_encoder(
                 coords_pvd, coords_pvd, temb)
-
+        with span("fusion.project"):
             fused = self.projs[-1](f_pvd) + f_pc2
             fused_skips = [pc2_skips[0]] + [
                 proj(pvd_s) + pc2_s for proj, pvd_s, pc2_s
                 in zip(self.projs, pvd_skips[1:], pc2_skips[1:])]
-            return self.decoder(fused, cc_pc2, temb_pc2, coords_list,
-                                fused_skips)
+        return self.decoder(fused, cc_pc2, temb_pc2, coords_list,
+                            fused_skips)

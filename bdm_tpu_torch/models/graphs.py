@@ -5,7 +5,8 @@ by the host on its own. Captured once into a CUDA graph, the same kernels
 in the same order are one launch, and the host leaves the step.
 `ForwardGraphs` keeps the graphs of one module's forward, one an input
 signature (the shape, dtype and device of every tensor argument, None
-where an argument is None):
+where an argument is None, and a `key` for what else the forward takes:
+the fusion network's mode):
 
 - the first call with a signature runs the forward eagerly, which warms
   the kernels' attributes, the packed conv weights and the allocator,
@@ -17,8 +18,8 @@ where an argument is None):
 - the graphs are dropped when a parameter or buffer of the module is
   written in place or replaced (its `data_ptr()` or `_version` changes,
   the rule of `ops.cuda.conv3d.packed`, whose packed weights a graph
-  reads), and by `clear()`, which the module calls from `train()` and
-  `_apply()` (`.to()`, `.cuda()`, ...).
+  reads), and by `clear()`, which a `Graphed` module calls from `train()`
+  and `_apply()` (`.to()`, `.cuda()`, ...).
 
 A call replays only when a replay can stand in for it, as far as the call
 can observe (`replayable`): its tensors are on the card, autograd is off
@@ -126,9 +127,11 @@ class ForwardGraphs:
         self.graphs.clear()
         self.stamp = None
 
-    def __call__(self, module: nn.Module, fn: Callable, *args):
+    def __call__(self, module: nn.Module, fn: Callable, *args, key=None):
         """fn(*args) -> a tensor: eagerly, or by a replay where `module`'s
-        forward may be replayed."""
+        forward may be replayed. `key`: what fn depends on besides the
+        tensors' signatures (hashable); calls that differ in it never share
+        a graph."""
         global graph_replays
         if not replayable(module, args):
             return fn(*args)
@@ -138,16 +141,16 @@ class ForwardGraphs:
         if stamp != self.stamp:
             self.clear()
             self.stamp = stamp
-        key = tuple(None if a is None else (a.shape, a.dtype, a.device)
-                    for a in args)
-        g = self.graphs.get(key)
+        sig = tuple(None if a is None else (a.shape, a.dtype, a.device)
+                    for a in args) + (key,)
+        g = self.graphs.get(sig)
         if g is None:
             out = fn(*args)
-            self.graphs[key] = _capture(fn, args)
+            self.graphs[sig] = _capture(fn, args)
             if len(self.graphs) > MAX_GRAPHS:
                 self.graphs.popitem(last=False)
             return out
-        self.graphs.move_to_end(key)
+        self.graphs.move_to_end(sig)
         for buf, a in zip(g.inputs, args):
             if buf is not None:
                 buf.copy_(a)
@@ -155,6 +158,23 @@ class ForwardGraphs:
         kernels.add_tally(g.tally)
         graph_replays += 1
         return g.out.clone()
+
+
+class Graphed(nn.Module):
+    """A module whose forward goes through its `graphs`: `train()` and
+    `_apply()` (`.to()`, `.cuda()`, ...) drop them."""
+
+    def __init__(self):
+        super().__init__()
+        self.graphs = ForwardGraphs()
+
+    def train(self, mode: bool = True):
+        self.graphs.clear()
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
 
 
 def _capture(fn: Callable, args) -> _Graph:

@@ -30,7 +30,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from bdm_tpu_torch import ops
-from bdm_tpu_torch.models.graphs import ForwardGraphs
+from bdm_tpu_torch.models.graphs import Graphed
 from bdm_tpu_torch.models.layers import (SE, Attention, Conv1x1, Dropout,
                                          GroupNormCL, SharedMLP,
                                          get_timestep_embedding,
@@ -437,7 +437,7 @@ def init_uniform(module: nn.Module, gen: torch.Generator) -> None:
             m.weight.fill_(1.0)
 
 
-class PVCNN2(nn.Module):
+class PVCNN2(Graphed):
     """The noise-prediction backbone (`pvcnn.py:10-150`):
     forward(inputs (B, N, 3 + S), t (B,)) -> (B, N, out_channels) float32.
     Coordinates are the first 3 input channels. The module leaves its
@@ -466,7 +466,6 @@ class PVCNN2(nn.Module):
         self.sp_min_points = sp_min_points
         self.classifier_init_scale = classifier_init_scale
         self.dtype = dtype
-        self.graphs = ForwardGraphs()
         self.specs = build_pvcnn2_specs(
             sa_blocks, fp_blocks, extra_feature_channels, use_att,
             width_multiplier, voxel_resolution_multiplier)
@@ -502,14 +501,6 @@ class PVCNN2(nn.Module):
         return [self.sp_group if psh.sp_active(self.sp_group, c,
                                                self.sp_min_points) else None
                 for c in counts]
-
-    def train(self, mode: bool = True):
-        self.graphs.clear()
-        return super().train(mode)
-
-    def _apply(self, fn, *args, **kwargs):
-        self.graphs.clear()
-        return super()._apply(fn, *args, **kwargs)
 
     def forward(self, inputs: torch.Tensor, t: torch.Tensor,
                 pre_tap: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -17,6 +17,7 @@ _MODEL = "model step: models/, conditioning/, diffusion/"
 _GLUE = "point ops and glue: ops/*.py and PyTorch, cuDNN calls"
 _KERNELS = "kernels: ops/cuda/ and csrc/"
 NAMES = {"network": _MODEL, "pc2.condition": _MODEL, "pc2.update": _LOOP,
+         "fusion.pvd_tower": _MODEL, "fusion.project": _MODEL,
          "voxel.context": _GLUE, "pvconv.voxelize": _GLUE,
          "pvconv.se": _GLUE, "pvconv.devoxelize": _GLUE,
          "groupnorm": _KERNELS, "attention": _KERNELS, "sa.group": _KERNELS,

@@ -14,7 +14,10 @@ counters' tally. On the card (`-m cuda`): the replay bit for bit the eager
 forward for PC2 (390 input channels) and PVD at B 8, N 4096, bf16 and
 float32, three timesteps through one graph; outputs kept across calls; an
 in-place weight update; pre-hooks; the counters; a B-8 BDM-B tail slice
-equal to the eager one. Torch only:
+equal to the eager one. The fusion network's forward (`PVCNNFuse`) under
+the same rule: eager on the CPU, one graph a mode, dropped by a write to a
+projection, and on the card its replay bit for bit the eager forward in
+both modes at production widths. Torch only:
 
     python -m pytest tests/test_torch_graphs.py -m cuda -q --noconftest
 """
@@ -26,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from bdm_tpu_torch.models import graphs
+from bdm_tpu_torch.models.fusion import MODES, PVCNNFuse
 from bdm_tpu_torch.models.layers import get_timestep_embedding
 from bdm_tpu_torch.models.pvcnn import PVCNN2
 from bdm_tpu_torch.ops import cuda as kernels
@@ -252,6 +256,75 @@ def test_timestep_frequencies_are_made_once():
     (get_timestep_embedding(64, t) * w).sum().backward()
 
 
+def _fuse_net(**kw):
+    """A tiny fusion network with its zero-convs drawn live: at zero the
+    PVD tower would not reach the output."""
+    net = PVCNNFuse(**{"embed_dim": 8, "extra_feature_channels": 5, **kw})
+    net.reset_parameters(0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for proj in net.projs:
+            w = proj[3].weight
+            w.copy_(torch.randn(w.shape, generator=g) / w.shape[1] ** 0.5)
+    return net
+
+
+def _fuse_eager(net, x, prior, t, mode):
+    with torch.inference_mode():
+        return net._forward(x, prior, t, mode)
+
+
+def test_fusion_on_the_cpu_runs_eagerly(monkeypatch):
+    graphs.reset_counts()
+    net = _fuse_net(sa_blocks=TINY_SA, fp_blocks=TINY_FP)
+    x, t = _inputs()
+    prior = x[..., :3] * 0.7
+    with torch.inference_mode():
+        # the tensors are off the card, and that alone stops a replay
+        assert not graphs.replayable(net, (x, prior, t))
+        with monkeypatch.context() as m:
+            m.setattr(graphs, "_on_card", lambda args: True)
+            assert graphs.replayable(net, (x, prior, t))
+        outs = {m: [net(x, prior, t, m) for _ in range(2)] for m in MODES}
+    assert graphs.counts() == {"graph_captures": 0, "graph_replays": 0}
+    assert not net.graphs.graphs
+    for m, got in outs.items():
+        for out in got:
+            assert torch.equal(out, _fuse_eager(net, x, prior, t, m))
+
+
+def test_fusion_modes_never_share_a_graph(card):
+    net = _fuse_net(sa_blocks=TINY_SA, fp_blocks=TINY_FP)
+    x, t = _inputs()
+    prior = x[..., :3] * 0.7
+    outs = {}
+    with torch.inference_mode():
+        for m in MODES + MODES:
+            outs[m] = net(x, prior, t, m)
+            assert torch.equal(outs[m], _fuse_eager(net, x, prior, t, m))
+    assert graphs.counts() == {"graph_captures": 2, "graph_replays": 2}
+    assert {k[-1] for k in net.graphs.graphs} == set(MODES)
+    # the PVD tower reads another cloud in each mode
+    assert not torch.equal(*outs.values())
+
+
+def test_fusion_graphs_drop_on_a_projection_write(card):
+    net = _fuse_net(sa_blocks=TINY_SA, fp_blocks=TINY_FP)
+    x, t = _inputs()
+    prior = x[..., :3] * 0.7
+    with torch.inference_mode():
+        before = net(x, prior, t)
+        net(x, prior, t)
+    assert graphs.counts() == {"graph_captures": 1, "graph_replays": 1}
+    with torch.no_grad():
+        net.projs[1][3].weight.mul_(3.0)
+    with torch.inference_mode():
+        after = net(x, prior, t)
+    assert graphs.counts() == {"graph_captures": 2, "graph_replays": 1}
+    assert not torch.equal(after, before)
+    assert torch.equal(after, _fuse_eager(net, x, prior, t, "fusion_nstep"))
+
+
 # ------------------------------------------------------------ on the card
 
 @pytest.fixture
@@ -384,3 +457,24 @@ def test_voxel_run_starts_from_a_search():
                           counts.reshape(b, -1).cumsum(1)], 1)
         assert ctx.voxel_lo.dtype == torch.int32
         assert torch.equal(ctx.voxel_lo.long(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_fusion_replay_bit_equal_to_eager(dev, mode):
+    """The fusion network at production widths (387 extra channels, bf16),
+    B 8, N 4096: three timesteps through one graph, each replay bit for bit
+    the eager forward."""
+    net = _fuse_net(extra_feature_channels=387, embed_dim=64,
+                    dtype=torch.bfloat16).to(dev)
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(8, 4096, 390, generator=g) * 0.3).to(dev)
+    prior = (torch.randn(8, 4096, 3, generator=g) * 0.3).to(dev)
+    with torch.inference_mode():
+        for i, step in enumerate((999, 500, 3)):
+            t = torch.full((8,), step, dtype=torch.long, device=dev)
+            xi = x * (1.0 + 0.1 * i)
+            out = net(xi, prior, t, mode)
+            assert torch.equal(out, net._forward(xi, prior, t, mode)), step
+    torch.cuda.synchronize()
+    assert graphs.counts() == {"graph_captures": 1, "graph_replays": 2}

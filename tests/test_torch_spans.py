@@ -113,6 +113,26 @@ def test_every_name_is_in_the_table_and_every_entry_is_emitted():
     assert set(spans.NAMES.values()) <= layers
 
 
+def test_fusion_spans_once_each_inside_network():
+    net = _fuse()
+    x, t = _inputs(8)
+    kept = []
+    with torch.no_grad(), spans.recording(), user_spans(kept):
+        net(x, x[..., :3], t)
+    spans_of = {}
+    for name, ts, dur in kept:
+        spans_of.setdefault(name, []).append((ts, ts + dur))
+    (lo, hi), = spans_of["network"]
+    for name in ("fusion.pvd_tower", "fusion.project"):
+        (a, b), = spans_of[name]
+        assert lo <= a <= b <= hi, name
+    # off: nothing recorded
+    off = []
+    with torch.no_grad(), user_spans(off):
+        net(x, x[..., :3], t)
+    assert off == []
+
+
 def test_off_is_one_shared_noop_a_profiler_never_sees():
     assert spans.span("network") is spans.span("groupnorm")
     net = _pvcnn2()
